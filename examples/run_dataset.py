@@ -14,6 +14,7 @@ import argparse
 import json
 import os
 import sys
+import tempfile
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 ".."))
@@ -29,7 +30,8 @@ def main():
     ap.add_argument("--cy", type=float, required=True)
     ap.add_argument("--frames", type=int, default=None)
     ap.add_argument("--poseframe-every", type=int, default=4)
-    ap.add_argument("--out", default="/tmp/flame_dataset_out")
+    ap.add_argument("--out", default=os.path.join(tempfile.gettempdir(),
+                                                 "flame_dataset_out"))
     ap.add_argument("--cpu", action="store_true")
     ap.add_argument("--ba", action="store_true")
     ap.add_argument("--min-height", type=float, default=-1e6)
@@ -41,11 +43,8 @@ def main():
     import jax
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                   "..", ".jax_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
+    from flame_tpu.utils import compile_cache
+    compile_cache.enable()
 
     import numpy as np
     from flame_tpu import Flame, Params

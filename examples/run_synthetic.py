@@ -3,7 +3,7 @@
 posed monocular sequence, with debug renders written as PPM images.
 
 Usage:
-    python examples/run_synthetic.py [--frames 20] [--out /tmp/flame_out]
+    python examples/run_synthetic.py [--frames 20] [--out $TMPDIR/flame_out]
     python examples/run_synthetic.py --cpu       # force the CPU backend
 
 Scene: a textured fronto-parallel plane at 5 m viewed by a camera
@@ -15,6 +15,7 @@ measure.
 import argparse
 import os
 import sys
+import tempfile
 import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -32,7 +33,8 @@ def write_ppm(path, rgb):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=20)
-    ap.add_argument("--out", default="/tmp/flame_out")
+    ap.add_argument("--out", default=os.path.join(tempfile.gettempdir(),
+                                                 "flame_out"))
     ap.add_argument("--cpu", action="store_true")
     ap.add_argument("--width", type=int, default=320)
     ap.add_argument("--height", type=int, default=240)
@@ -44,11 +46,8 @@ def main():
     import jax
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                   "..", ".jax_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
+    from flame_tpu.utils import compile_cache
+    compile_cache.enable()
 
     import numpy as np
     import jax.numpy as jnp

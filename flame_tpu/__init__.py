@@ -1,6 +1,6 @@
-"""flame_tpu — a TPU-native dense monocular depth-mesh estimation framework.
+"""flame_tpu — a dense monocular depth-mesh estimation framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 robustrobotics/flame (FLaME: Fast Lightweight Mesh Estimation,
 Greene & Roy ICCV'17): given a posed monocular image stream, estimate a
 dense inverse-depth mesh at frame rate by combining
@@ -15,11 +15,12 @@ dense inverse-depth mesh at frame rate by combining
 Where the reference (C++11, OpenCV/Eigen/Sophus/Boost, 3 threads + OpenMP +
 SSE) mutates shared graph state, flame_tpu uses fixed-capacity
 structure-of-arrays state with validity masks and a functional per-frame
-step, so the whole hot path jit-compiles onto the TPU. The only host-side
+step, so the whole hot path jit-compiles onto the accelerator. The only
+host-side
 stage is Delaunay triangulation (native C++, `flame_tpu/native`).
 
 Beyond the reference, flame_tpu adds windowed bundle adjustment over
-keyframe poses (`flame_tpu.ba`), multi-chip sharding of the smoothing
+keyframe poses (`flame_tpu.ba`), multi-device sharding of the smoothing
 and BA solves (`flame_tpu.parallel`), checkpointing, and a structured
 stats/tracing layer.
 """

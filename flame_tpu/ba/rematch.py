@@ -11,7 +11,7 @@ into the along-line/depth direction (measured: 12 mm injected ATE ->
 Before each solve, this module re-matches every observation with a small
 UNCONSTRAINED 2-D SSD search around the current-estimate prediction,
 restoring the perpendicular component of the reprojection residual. The
-TPU formulation samples each observation's (2*(radius+hp)+1)^2 pixel
+formulation here samples each observation's (2*(radius+hp)+1)^2 pixel
 window ONCE (bilinear row-gathers) and computes the SSD field by shifted
 sums — 121 samples/observation instead of 1225 at radius 3, patch 5x5.
 
@@ -67,8 +67,8 @@ def rematch_observations(K, Kinv, imgs_pad, pad: int, qw, tw,
     wx = u_pred[:, 0, None, None] + offs[None, None, :] + pad
     wy = u_pred[:, 1, None, None] + offs[None, :, None] + pad
     fobs = jnp.broadcast_to(obs_slot[:, None, None], (M, Wn, Wn))
-    # packed=True fallback: ~500k one-off samples from a static stack —
-    # the 4-per-sample direct gather measured 22 ms/solve on v5e (r4).
+    # packed=True: ~500k one-off samples from a static stack, one packed
+    # row gather per sample instead of 4 corner gathers.
     win = interp.bilinear_stack(imgs_pad, fobs, wx, wy,
                                 packed=True, img_pack=img_pack)  # (M,Wn,Wn)
 

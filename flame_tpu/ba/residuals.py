@@ -87,10 +87,12 @@ def residuals_and_jacobians(K, Kinv, q_w, t_w, obs: BAObservations,
         Ja, Jo, Jd = jax.jacfwd(lambda args: g(*args)[0])(
             (zeros6, zeros6, 0.0))
         if L2 is not None:
-            r = L2 @ r
-            Ja = L2 @ Ja
-            Jo = L2 @ Jo
-            Jd = L2 @ Jd
+            # Full f32 products: a GPU would otherwise run them in TF32.
+            hi = jax.lax.Precision.HIGHEST
+            r = jnp.matmul(L2, r, precision=hi)
+            Ja = jnp.matmul(L2, Ja, precision=hi)
+            Jo = jnp.matmul(L2, Jo, precision=hi)
+            Jd = jnp.matmul(L2, Jd, precision=hi)
         # Robust (Huber) weight on the residual norm.
         rn = jnp.linalg.norm(r)
         w_h = jnp.where(rn <= huber_delta, 1.0,

@@ -1,6 +1,6 @@
 """Gradient-grid feature detection as a dense device computation.
 
-TPU-native re-design of the reference's single-pass grid detector
+JAX re-design of the reference's single-pass grid detector
 (/root/reference/src/flame/flame.cc:1192-1262): instead of a per-pixel
 loop, the epipolar-projected gradient score is computed for the whole
 image at once (the reference-epiline direction is an affine function of

@@ -1,6 +1,6 @@
 """Two-view epipolar geometry as a precomputed pytree + batched query functions.
 
-TPU-native re-design of the reference's EpipolarGeometry<Scalar> class
+JAX re-design of the reference's EpipolarGeometry<Scalar> class
 (/root/reference/src/flame/stereo/epipolar_geometry.h:44-428). Instead of a
 stateful C++ object queried pixel-by-pixel, `load(K, Kinv, q, t)` returns an
 EpiGeo NamedTuple of cached tensors (KRKinv, Kt, epipole, ...) and every
@@ -37,11 +37,11 @@ def load(K: jax.Array, Kinv: jax.Array, q_ref_to_cmp: jax.Array,
          t_ref_to_cmp: jax.Array) -> EpiGeo:
     """Precompute cached quantities (reference epipolar_geometry.h:86-103)."""
     R = se3.quat_to_matrix(q_ref_to_cmp)
-    # HIGHEST precision: TPU matmuls default to bf16 inputs, and a 2^-9
-    # relative error on KRKinv entries (~525) shifts infinite-depth
-    # projections by ~0.3 px — a systematic disparity bias worth several
-    # percent of inverse depth at small baselines (measured 8x median
-    # depth-error inflation on v5e). These are 3x3 mats; cost is nil.
+    # HIGHEST precision: a GPU may run f32 matmuls in TF32 (10-bit
+    # mantissa), and a 2^-11 relative error on KRKinv entries (~525)
+    # shifts infinite-depth projections by ~0.1-0.3 px — a systematic
+    # disparity bias worth several percent of inverse depth at small
+    # baselines. These are 3x3 mats; cost is nil.
     hi = jax.lax.Precision.HIGHEST
     KRKinv = jnp.matmul(K, jnp.matmul(R, Kinv, precision=hi), precision=hi)
     Kt = jnp.matmul(K, t_ref_to_cmp, precision=hi)

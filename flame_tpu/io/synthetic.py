@@ -96,7 +96,7 @@ _BOX_X = (-0.75, -0.05)
 _BOX_Y = (-0.15, _FLOOR_Y)  # stands on the floor
 _BOX_Z = (3.4, 4.2)
 
-# Texture pathologies (VERDICT r3 #4) — the two classic monocular
+# Texture pathologies — the two classic monocular
 # failure modes the reference's gates exist for:
 #   * A TEXTURE-FREE patch on the right wall (with_flat_patch): constant
 #     intensity, zero gradient — the detection grid must yield no
@@ -269,10 +269,10 @@ def generate_mini_tum(root: str, n_frames: int = 24, width: int = 256,
     compare ATE of noisy vs refined poses against ground truth.
     Returns {"K", "gt": [(q, t)], "noisy": [(q, t)] or None}.
 
-    Non-ideal imagery knobs (VERDICT r2 #4): with_box adds a
+    Non-ideal imagery knobs: with_box adds a
     free-standing occluder (depth discontinuity + occluded matches);
     exposure_drift applies a per-frame gain 1 + drift*sin(i/4) and bias
-    8*drift*sin(i/3) (slow photometric weather); noise_sigma adds
+    8*drift*sin(i/3) (slow photometric drift); noise_sigma adds
     per-frame i.i.d. Gaussian sensor noise (deterministic in
     noise_seed).
     """

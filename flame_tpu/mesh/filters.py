@@ -1,6 +1,6 @@
 """Display-mesh triangle filters and vertex normals, batched over the mesh.
 
-TPU-native re-design of the reference's per-triangle loops
+JAX re-design of the reference's per-triangle loops
 (/root/reference/src/flame/flame.cc:2207-2361 filters, :2529-2663 normals):
 each filter is one masked whole-mesh computation; the triangle-averaged
 vertex normals use segment-sum instead of sequential accumulate (the
@@ -19,8 +19,8 @@ from flame_tpu.params import TriangleFilterParams
 
 class CornerGeometry(NamedTuple):
     """Shared per-triangle corner data: ONE row gather feeds the filters
-    and the normals (TPU gathers cost per row; gathering verts/idepths
-    separately in each filter measured ~2x the fused cost)."""
+    and the normals (instead of gathering verts/idepths separately in
+    each filter)."""
 
     uv: jax.Array  # (T, 3, 2) corner pixel positions
     ids: jax.Array  # (T, 3) corner idepths

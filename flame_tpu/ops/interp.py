@@ -19,10 +19,9 @@ def _pack4(flat: jax.Array, W: int) -> jax.Array:
     """(H*W,) -> (H*W, 4) rows [v(i), v(i+1), v(i+W), v(i+W+1)].
 
     Packing the 2x2 corner neighborhood into one row turns bilinear
-    sampling into a single ROW gather with 1/4 the indices: TPU gather
-    cost is per-index, not per-byte (22x faster at 4096x44 samples on
-    v5e: 0.18 vs 3.9 ms). The jnp.roll wraparound rows are never gathered
-    (positions are clamped to the interior).
+    sampling into a single ROW gather with 1/4 the indices (gathers pay
+    per index more than per byte). The jnp.roll wraparound rows are never
+    gathered (positions are clamped to the interior).
     """
     return jnp.stack([flat,
                       jnp.roll(flat, -1),
@@ -43,8 +42,7 @@ def bilinear(img: jax.Array, x: jax.Array, y: jax.Array,
     instead asserts; clamping keeps the op total for masked lanes).
 
     pack_dtype: optional storage dtype for the packed-corner table (large
-    queries only). jnp.bfloat16 halves the gathered row bytes — measured
-    671 -> ~400 us for the line-stereo [N, S] gather on v5e — and is EXACT
+    queries only). jnp.bfloat16 halves the gathered row bytes and is EXACT
     for integer-valued images (bf16's 8 mantissa bits represent 0..255
     exactly; the reference's images are u8, image_utils.h:231-272), so the
     interpolated values are bit-identical for u8 sources. Non-integer
@@ -97,9 +95,8 @@ def bilinear_stack(imgs: jax.Array, frame_idx: jax.Array, x: jax.Array,
     img_pack: optional PERSISTENT packed-corner table of the stack
     (frame.FrameStack.img_pack, flat (F*H*W, 4) rows maintained at
     poseframe-insert time). When given, sampling is one row gather
-    against it — no per-call table build, no element gather. Measured
-    212 vs 584 us for the track loop's 20.5k ref-patch samples on v5e
-    (fusion.1001 of the r4b device profile). imgs still provides the
+    against it — no per-call table build, no element gather. imgs still
+    provides the
     (F, H, W) dims and the f32 fallback.
 
     packed: used only when img_pack is None. None picks by the

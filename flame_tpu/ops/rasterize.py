@@ -1,6 +1,6 @@
 """Barycentric mesh rasterization into dense value maps.
 
-TPU-native replacement for the reference's SSE scanline rasterizer
+JAX replacement for the reference's SSE scanline rasterizer
 (/root/reference/src/flame/utils/rasterization.cc:164-245) and
 interpolateMesh (/root/reference/src/flame/utils/image_utils.cc:373-419).
 
@@ -88,9 +88,9 @@ def _eval_chunk(a, b, c, area2, vals, valid, xs, ys):
          + c[:, :, None, None])  # (C, 3, H, W)
     inside = jnp.all(w >= 0, axis=1) & (valid & (area2 > 0))[:, None, None]
     denom = jnp.where(area2 > 0, area2, 1.0)[:, None, None]
-    # Elementwise contraction over the 3 corners (NOT einsum: a bf16
-    # MXU contraction biases the dense map, and f32 matmul wastes MXU
-    # cycles — this fuses into the surrounding elementwise graph).
+    # Elementwise contraction over the 3 corners (NOT einsum: a reduced-
+    # precision matmul would bias the dense map — this stays f32 and
+    # fuses into the surrounding elementwise graph).
     interp = (w[:, 0] * vals[:, 0, None, None]
               + w[:, 1] * vals[:, 1, None, None]
               + w[:, 2] * vals[:, 2, None, None]) / denom
@@ -135,21 +135,23 @@ def rasterize_bruteforce(verts: jax.Array, tris: jax.Array, vals: jax.Array,
 def rasterize(verts: jax.Array, tris: jax.Array, vals: jax.Array,
               tri_valid: jax.Array, height: int, width: int,
               truncate: bool = True, tile_h: int = 32, tile_w: int = 128,
-              max_per_tile: int = 160, cell_h: int = 16, cell_w: int = 32,
-              max_per_cell: int = 40) -> jax.Array:
+              max_per_tile: int = 512, cell_h: int = 16, cell_w: int = 32,
+              max_per_cell: int = 256) -> jax.Array:
     """Two-level tile-binned rasterizer (production path).
 
     Level 1 bins triangles to (tile_h x tile_w) image tiles by bbox
     overlap (mask over the full triangle array). Level 2 re-bins each
     tile's K1 candidates to (cell_h x cell_w) cells, so per-pixel work
     drops from K1 to K2 edge-function tests. Both capacities silently
-    drop overflow triangles, so they must exceed the max local density:
-    for meshes from the detection grid (one vertex per win_size cell,
-    win_size 16) a 16x32 cell plus the bbox ring of ~32 px triangles sees
-    ~(16+32)*(32+32)/128 ~= 24 triangles; 40 has headroom, and exactness
-    is regression-tested against rasterize_bruteforce on random (denser
-    than grid) Delaunay meshes. Level-2 binning is cheap because its mask
-    is (cells_per_tile, K1) not (n_cells, T).
+    drop overflow triangles, so they must exceed the max local count of
+    triangle bboxes. Most triangles are small (median bbox ~14 px at the
+    bench's 4096 slots over VGA), but the mesh also carries a few hundred
+    long slivers (bbox widths of 100-600 px), and their bboxes pile up: on
+    the bench scene the busiest 32x128 tile touches ~260 triangles and
+    the busiest 16x32 cell ~125, so 512 and 256 leave 2x headroom.
+    Exactness is regression-tested against rasterize_bruteforce on random
+    Delaunay meshes, and checked at the bench's size by chip_smoke.py. Level-2 binning is cheap because its mask is
+    (cells_per_tile, K1) not (n_cells, T).
     """
     nty = -(-height // tile_h)
     ntx = -(-width // tile_w)
@@ -172,7 +174,7 @@ def rasterize(verts: jax.Array, tris: jax.Array, vals: jax.Array,
     tvals = cg[..., 2]
 
     # Pack per-triangle data into one matrix so the per-cell gather is a
-    # single row gather (TPU gathers cost per row, not per byte).
+    # single row gather.
     packed = jnp.concatenate(
         [a, b, c, tvals, area2[:, None],
          jnp.zeros((T, 3), a.dtype)], axis=1)  # (T, 16)
@@ -199,10 +201,9 @@ def rasterize(verts: jax.Array, tris: jax.Array, vals: jax.Array,
                tri_valid[None, :] & (area2[None, :] > 0))
 
     # Per-tile compacted triangle indices via top_k on the masked iota
-    # (measured faster than the cumsum+rank-scatter alternative on TPU
-    # v5e: 0.84 vs 1.20 ms at this shape; a full argsort is ~1M keys and
-    # far slower). Which K triangles survive overflow differs from the
-    # reference's first-K, but overflow is out-of-contract anyway.
+    # (a full argsort would sort ~1M keys). Which K triangles survive
+    # overflow differs from the reference's first-K, but overflow is
+    # out-of-contract anyway.
     K = min(max_per_tile, T)
     key = jnp.where(overlap, jnp.arange(T, dtype=jnp.int32)[None, :], -1)
     kvals, _ = jax.lax.top_k(key, K)  # (n_tiles, K), -1 padded
@@ -271,34 +272,17 @@ def rasterize(verts: jax.Array, tris: jax.Array, vals: jax.Array,
     return jnp.where(jnp.isinf(img), jnp.nan, img)
 
 
-def rasterize_auto(verts: jax.Array, tris: jax.Array, vals: jax.Array,
-                   tri_valid: jax.Array, height: int, width: int,
-                   **kwargs) -> jax.Array:
-    """Backend dispatch: the fused Pallas tile kernel on TPU (3.5x the
-    XLA tile-binned version, exact-equal output — ops/pallas_raster.py),
-    the XLA version elsewhere."""
-    import jax as _jax
-    if _jax.default_backend() == "tpu" and not kwargs:
-        from flame_tpu.ops import pallas_raster
-        return pallas_raster.rasterize(verts, tris, vals, tri_valid,
-                                       height, width)
-    return rasterize(verts, tris, vals, tri_valid, height, width, **kwargs)
+# The production single-view rasterizer.
+rasterize_auto = rasterize
 
 
 def rasterize_batch_auto(verts: jax.Array, tris: jax.Array,
                          vals: jax.Array, tri_valid: jax.Array,
                          height: int, width: int) -> jax.Array:
     """Rasterize one triangle set from B viewpoints: verts (B, V, 2),
-    vals (B, V), tri_valid (B, T) -> (B, H, W). On TPU the Pallas
-    kernel shares ONE binning pass across the views (the binning top_k
-    was ~1.4 ms/frame of the r4 device profile when run per view);
-    elsewhere a vmap over the XLA tile-binned rasterizer."""
-    import jax as _jax
-    if _jax.default_backend() == "tpu":
-        from flame_tpu.ops import pallas_raster
-        return pallas_raster.rasterize_batch(verts, tris, vals, tri_valid,
-                                             height, width)
-    return _jax.vmap(
+    vals (B, V), tri_valid (B, T) -> (B, H, W), a vmap of the tile-binned
+    rasterizer over the views (each view bins its own triangles)."""
+    return jax.vmap(
         lambda v, x, tv: rasterize(v, tris, x, tv, height, width))(
             verts, vals, tri_valid)
 

@@ -1,6 +1,6 @@
 """NLTGV2-L1 variational smoothing on padded edge-list graphs.
 
-TPU-native re-design of the reference's Chambolle-Pock primal-dual solver
+JAX re-design of the reference's Chambolle-Pock primal-dual solver
 over a Boost adjacency_list
 (/root/reference/src/flame/optimizers/nltgv2_l1_graph_regularizer.cc).
 
@@ -22,8 +22,8 @@ scatter implementations are provided:
 
   * segment-sum (reference implementation, always correct), and
   * incidence-gather: a host-built [V, D] table of incident edge ids +
-    signs turns the scatter into pure gathers — the TPU-friendly fast
-    path (gathers vectorize; scatters serialize). `smooth()` picks
+    signs turns the scatter into pure gathers — the fast path (gathers
+    vectorize; scatters serialize or need atomics). `smooth()` picks
     incidence when the table is present.
 
 `smooth()` runs K iterations inside one jit/fori_loop — the deterministic
@@ -221,7 +221,7 @@ def _primal_step_segment(p: RegularizerParams, g: GraphState) -> GraphState:
 
 
 def _primal_step_incidence(p: RegularizerParams, g: GraphState) -> GraphState:
-    """Primal descent via the [V, D] incidence gather (TPU fast path).
+    """Primal descent via the [V, D] incidence gather (fast path).
 
     For vertex v and incident edge e with sign s (+1 if v is the edge's
     source, -1 if target):
@@ -291,10 +291,9 @@ def _smooth_stacked(p: RegularizerParams, g: GraphState,
     matrix so each iteration does exactly two row gathers and two row
     segment-sums.
 
-    TPU XLA lowers each 1-D gather/scatter to roughly the same cost as an
-    8-column row gather (~0.1 ms at V=4k/E=16k on v5e), so the naive
-    field-per-field formulation (~15 gathers/iter) runs ~10x slower than
-    this one. Edge geometry (dx, dy, alpha) is loop-invariant and hoisted.
+    A 1-D gather/scatter costs about as much as an 8-column row gather
+    (the cost is per index), so the naive field-per-field formulation
+    (~15 gathers/iter) does far more work than this one. Edge geometry (dx, dy, alpha) is loop-invariant and hoisted.
     """
     V = g.x.shape[0]
     ii = g.edges[:, 0]
@@ -374,10 +373,8 @@ def _smooth_vertex_centric(p: RegularizerParams, g: GraphState,
     edge's dual (q1, q2, q3) in its [V, D] incidence slots and updates it
     locally each iteration. Both endpoints of an edge compute the update
     from identical operands in identical order, so the two copies stay
-    bit-identical — no scatter, no second gather. Measured 2.6x faster
-    than the stacked segment-sum loop on TPU v5e (0.16 vs 0.41 ms/iter at
-    V=4k, E=16k, D=16): TPU cost here is per-gathered-row, and this
-    formulation gathers V*D rows/iter vs 2E + V*D for incidence-primal or
+    bit-identical — no scatter, no second gather. This formulation
+    gathers V*D rows/iter vs 2E + V*D for incidence-primal or
     2x(E row-gather + E-row scatter) for the stacked loop — and scatters
     cost more than gathers.
 
@@ -394,9 +391,8 @@ def _smooth_vertex_centric(p: RegularizerParams, g: GraphState,
     is_src = g.inc_sign > 0.0
 
     # Loop-invariant per-slot edge state, in canonical orientation. All
-    # per-edge quantities ride ONE (E, 8) row gather — field-by-field
-    # (V, D) gathers from (E,) arrays measured ~8 ms of fixed cost on
-    # TPU v5e vs ~1 ms for the stacked form.
+    # per-edge quantities ride ONE (E, 8) row gather instead of one
+    # field-by-field (V, D) gather per (E,) array.
     ii = g.edges[:, 0]
     jj = g.edges[:, 1]
     dx_e = g.pos[ii, 0] - g.pos[jj, 0]

@@ -3,9 +3,8 @@
 The Schur assembly (flame_tpu/ba/schur.py) is segment-sums over
 observations, so it distributes as classic data parallelism: each device
 assembles partial (Hpp, bp, Hll, bl, W) from its observation shard and one
-psum over the ICI combines them; the tiny reduced solve then runs
-replicated on every device. This is the "reduce off-diagonal BA blocks
-over ICI collectives" layer of the north star (BASELINE.json).
+psum combines them; the tiny reduced solve then runs replicated on every
+device.
 
 The compiled solver is CACHED per (params, n_fixed, mesh, shapes): the
 assembly/GN loop jits once and every subsequent solve of the same window
@@ -82,7 +81,7 @@ def solve_window_sharded(params: BAParams, K, Kinv,
     """solve_window with the assembly sharded over the mesh.
 
     Observation rows are padded (valid=False) up to a multiple of the
-    mesh axis (VERDICT r2 #3 removed the silent divisibility fallback).
+    mesh axis (there is no silent divisibility fallback).
     sqrtW is per-observation whitening ((M, 2, 2),
     ba/rematch.observation_weights) and shards with the observations.
     Numerically equivalent to the single-device solve up to float

@@ -1,17 +1,15 @@
-"""Vertex-partitioned NLTGV2 smoothing with halo exchange over the ICI.
+"""Vertex-partitioned NLTGV2 smoothing with halo exchange between devices.
 
 The edge-sharded smoother (parallel/sharding.py) replicates the vertex
-state and all-reduces a (V, 3) sum every iteration — fine at V <= 16k on
-one slice, but the psum payload grows with V. This module partitions the
-VERTICES instead, the true pod-slice scaling mode the north star asks for
+state and all-reduces a (V, 3) sum every iteration, so its collective
+payload grows with V. This module partitions the VERTICES instead
 (SURVEY.md section 5: "partition keyframes and mesh blocks across
 devices/hosts; halo-exchange graph-boundary dual variables each smoothing
 iteration"):
 
-  * Vertices are RCM-ordered (the same host ordering the Pallas smoother
-    uses — optimize/pallas_smoother.rcm_order) so every edge spans at
-    most `halo` ranks, then block-partitioned contiguously across the
-    mesh axis.
+  * Vertices are RCM-ordered on the host (rcm_order below) so every edge
+    spans at most `halo` ranks, then block-partitioned contiguously across
+    the mesh axis.
   * Each device owns its vertex block plus read-only halo copies of the
     adjacent blocks' boundary strips. The vertex-centric both-copies
     formulation (each endpoint keeps a local copy of its edges' duals)
@@ -21,11 +19,11 @@ iteration"):
     floats (~9 KB at halo=384) — constant per device as V grows, vs the
     O(V) psum of the edge-sharded formulation.
 
-Semantics match nltgv2.step / the Pallas kernel: edges whose endpoints
-end up more than `halo` ranks apart (none at RCM bandwidth ~230) are
-dropped consistently on both sides for the call.
+Semantics match nltgv2.step: edges whose endpoints end up more than
+`halo` ranks apart are dropped consistently on both sides for the call.
 """
 
+import collections
 import functools
 
 import jax
@@ -38,14 +36,16 @@ from flame_tpu.params import RegularizerParams
 
 AXIS = "graph"
 
-# ICI traffic of the most recently TRACED halo_smooth configuration.
+# Interconnect traffic of the most recently TRACED halo_smooth configuration.
 # Assigned at trace time only — executions served from the jit cache do
 # not update it (the numbers are static per configuration; for live
 # telemetry across multiple configs, call traffic_model directly with
 # your config instead of reading this).
 LAST_TRAFFIC = None
 
-LANES = 128  # rank rows are 128 lanes (pallas_smoother.LANES)
+# Rank-row width of the RCM band: perm_edge_ranks keeps an edge when its
+# endpoints' ranks lie within `reach` rows of LANES ranks of each other.
+LANES = 128
 
 
 def strip_width(v_cap: int, n_dev: int, reach: int) -> int:
@@ -60,13 +60,12 @@ def strip_width(v_cap: int, n_dev: int, reach: int) -> int:
 
 def traffic_model(V: int, n_dev: int, n_iters: int, halo: int,
                   dtype_bytes: int = 4) -> dict:
-    """Analytical ICI traffic of one halo_smooth call — exact, because
+    """Analytical interconnect traffic of one halo_smooth call — exact, because
     the exchange is structural: per iteration each device ppermutes its
     two boundary strips of the (halo, 3) bar-state to its neighbors,
     INDEPENDENT of V (boundary scaling, not volume scaling; contrast the
-    edge-sharded smoother's O(V) psum, sharding.py). This is the
-    checkable scaling model real multi-chip hardware would confirm
-    (tests/test_scaling_model.py sweeps it on virtual meshes)."""
+    edge-sharded smoother's O(V) psum, sharding.py).
+    tests/test_scaling_model.py sweeps it on virtual meshes."""
     strip = halo * 3 * dtype_bytes  # one boundary strip of xb/w1b/w2b
     return {
         "smoother": "halo",
@@ -86,8 +85,8 @@ def rank_layout(g: nltgv2.GraphState, perm, inv_perm, ranks_p, degree: int,
     Returns (vtx 9-tuple of (V,) rank-ordered arrays, slots 10-tuple of
     (V, D) arrays [nbr global-rank, sdx, sdy, sal, sbe, sgn, srcf, q1,
     q2, q3], src_slot (E,) flat v*D+d of each edge's lo-copy for dual
-    write-back, alive (E,) bool). ranks_p from
-    pallas_smoother.perm_edge_ranks (255 = dropped)."""
+    write-back, alive (E,) bool). ranks_p from perm_edge_ranks
+    (255 = dropped)."""
     V = g.x.shape[0]
     D = degree
 
@@ -214,9 +213,9 @@ def halo_smooth(p: RegularizerParams, g: nltgv2.GraphState, perm, inv_perm,
                 halo: int = 384) -> nltgv2.GraphState:
     """Run n_iters vertex-partitioned smoothing iterations over the mesh.
 
-    perm/inv_perm/ranks_p come from pallas_smoother.rcm_order /
-    perm_edge_ranks (use reach = ceil(halo / 128) - 1 when reusing the
-    pallas ranks). V must divide the mesh size with block >= halo."""
+    perm/inv_perm/ranks_p come from rcm_order / perm_edge_ranks (with
+    reach = ceil(halo / LANES) - 1). V must divide the mesh size with
+    block >= halo."""
     V = g.x.shape[0]
     n_dev = mesh.devices.size
     assert V % n_dev == 0, "vertex capacity % devices"
@@ -245,3 +244,104 @@ def halo_smooth(p: RegularizerParams, g: nltgv2.GraphState, perm, inv_perm,
                       q1=jnp.where(em, q1, 0.0),
                       q2=jnp.where(em, q2, 0.0),
                       q3=jnp.where(em, q3, 0.0))
+
+
+# ---------------------------------------------------------------------------
+# Host-side helpers (numpy; run in the triangulation worker thread).
+# ---------------------------------------------------------------------------
+
+
+def rcm_order(edges: np.ndarray, n_valid_edges: int, v_cap: int,
+              member: np.ndarray) -> np.ndarray:
+    """Bandwidth-reducing vertex ordering: perm (V,) rank -> vertex slot.
+
+    Members are ordered by reverse Cuthill-McKee over the edge graph
+    (scipy when available, BFS fallback); non-members fill the tail.
+    """
+    e = edges[:n_valid_edges]
+    perm_members = _rcm(e, v_cap, member)
+    # _rcm returns exactly the member nodes, so the non-member tail is
+    # disjoint by construction.
+    rest = np.nonzero(~member)[0]
+    perm = np.concatenate([perm_members, rest]).astype(np.int32)
+    assert perm.shape[0] == v_cap
+    return perm
+
+
+def _rcm(e: np.ndarray, v_cap: int, member: np.ndarray) -> np.ndarray:
+    nodes = np.nonzero(member)[0]
+    try:
+        import scipy.sparse as sp
+        from scipy.sparse.csgraph import reverse_cuthill_mckee
+        n = nodes.shape[0]
+        dense_id = np.full(v_cap, -1, np.int64)
+        dense_id[nodes] = np.arange(n)
+        a = dense_id[e[:, 0]]
+        b = dense_id[e[:, 1]]
+        ok = (a >= 0) & (b >= 0)
+        A = sp.coo_matrix((np.ones(ok.sum(), np.int8), (a[ok], b[ok])),
+                          shape=(n, n)).tocsr()
+        A = A + A.T
+        order = reverse_cuthill_mckee(A, symmetric_mode=True)
+        return nodes[order].astype(np.int32)
+    except ImportError:
+        return _bfs_order(e, v_cap, nodes)
+
+
+def _bfs_order(e: np.ndarray, v_cap: int, nodes: np.ndarray) -> np.ndarray:
+    """Plain BFS ordering fallback (bounded-degree planar graphs get
+    near-sqrt bandwidth from BFS levels)."""
+    adj = collections.defaultdict(list)
+    nodeset = set(int(x) for x in nodes)
+    for a, b in e:
+        a, b = int(a), int(b)
+        if a in nodeset and b in nodeset:
+            adj[a].append(b)
+            adj[b].append(a)
+    seen = set()
+    order = []
+    for seed in nodes:
+        s = int(seed)
+        if s in seen:
+            continue
+        dq = collections.deque([s])
+        seen.add(s)
+        while dq:
+            u = dq.popleft()
+            order.append(u)
+            for w in sorted(adj[u]):
+                if w not in seen:
+                    seen.add(w)
+                    dq.append(w)
+    return np.asarray(order, np.int32)
+
+
+def perm_edge_ranks(edges: np.ndarray, n_e: int, inv_perm: np.ndarray,
+                    e_cap: int, degree: int,
+                    reach: int = 2, tie=None) -> np.ndarray:
+    """(E, 2) uint8 [src_rank, dst_rank] of each edge among its permuted
+    lo/hi vertex's incident edges. Edges whose endpoints' rank rows
+    (rank // LANES) differ by more than `reach`, or that overflow
+    `degree` on EITHER side, get 255 on both (dropped
+    consistently — unlike one-sided truncation, this keeps the two dual
+    copies identical). tie: optional per-edge sort key (e.g. length)
+    ordering each vertex's incident edges within its slot block, so
+    degree overflow drops the weakest couplings first."""
+    ranks = np.full((e_cap, 2), 255, np.uint8)
+    if n_e == 0:
+        return ranks
+    lo_p = inv_perm[edges[:n_e, 0]].astype(np.int64)
+    hi_p = inv_perm[edges[:n_e, 1]].astype(np.int64)
+    v_cap = inv_perm.shape[0]
+    band_ok = np.abs(lo_p // LANES - hi_p // LANES) <= reach
+
+    from flame_tpu.optimize.topology import rank_within
+    sr = rank_within(lo_p, tie)
+    # dst entries live ABOVE the vertex's src entries in its slot range so
+    # the two never collide (same scheme as topology.build_edge_ranks).
+    n_src = np.bincount(lo_p, minlength=v_cap)
+    dr = n_src[hi_p] + rank_within(hi_p, tie)
+    ok = band_ok & (sr < degree) & (dr < degree)
+    ranks[:n_e, 0] = np.where(ok, sr, 255).astype(np.uint8)
+    ranks[:n_e, 1] = np.where(ok, dr, 255).astype(np.uint8)
+    return ranks

@@ -1,15 +1,13 @@
-"""Multi-host (pod-slice) runtime setup.
+"""Multi-process runtime setup.
 
-On a TPU pod slice each host runs the same program; jax.distributed wires
-the hosts into one global device mesh over ICI/DCN. This module is the
-thin entry point: call initialize() once at startup, then build meshes
-with global_mesh() — the sharded smoothing/BA steps
-(flame_tpu.parallel.sharding / distributed_ba) are already expressed over
-mesh axes and run unchanged on multi-host meshes (collectives ride ICI
-within a slice and DCN across slices, scheduled by XLA).
+Each process runs the same program; jax.distributed wires the processes
+into one global device mesh. Call initialize() once at startup, then build
+meshes with global_mesh() — the sharded smoothing/BA steps
+(flame_tpu.parallel.sharding / distributed_ba) are expressed over mesh
+axes and run unchanged on multi-process meshes.
 """
 
-from typing import Optional, Sequence
+from typing import Sequence
 
 import numpy as np
 import jax
@@ -18,27 +16,20 @@ from jax.sharding import Mesh
 from flame_tpu.parallel.sharding import AXIS
 
 
-def initialize(coordinator_address: Optional[str] = None,
-               num_processes: Optional[int] = None,
-               process_id: Optional[int] = None) -> None:
-    """Initialize the distributed runtime. On TPU pods with standard env
-    (TPU_WORKER_HOSTNAMES etc.) all arguments auto-detect; pass them
-    explicitly for manual clusters."""
+def initialize(coordinator_address: str, num_processes: int,
+               process_id: int) -> None:
+    """Initialize the distributed runtime. The coordinator address
+    (host:port of process 0), the process count and this process's id
+    are given explicitly; nothing is auto-detected."""
     jax.distributed.initialize(coordinator_address=coordinator_address,
                                num_processes=num_processes,
                                process_id=process_id)
 
 
 def _device_grid(shape):
-    """Topology-aware device arrangement: enumeration order is NOT an
-    ICI-adjacency guarantee on pod slices, so let mesh_utils place mesh
-    axes along physical links (ring/torus) when it can; fall back to the
-    naive reshape on backends without topology info (virtual CPU)."""
-    try:
-        from jax.experimental import mesh_utils
-        return mesh_utils.create_device_mesh(tuple(shape))
-    except Exception:
-        return np.asarray(jax.devices()).reshape(tuple(shape))
+    """Devices in enumeration order. The cards of one host are joined all
+    to all, so the mesh follows the algorithm alone."""
+    return np.asarray(jax.devices()).reshape(tuple(shape))
 
 
 def global_mesh(axis: str = AXIS) -> Mesh:
@@ -47,8 +38,8 @@ def global_mesh(axis: str = AXIS) -> Mesh:
 
 
 def grid_mesh(shape: Sequence[int], axes: Sequence[str]) -> Mesh:
-    """N-D mesh over all global devices, e.g. (hosts, chips-per-host) for
-    keyframe-block x graph sharding."""
+    """N-D mesh over all global devices, e.g. (hosts, devices-per-host)
+    for keyframe-block x graph sharding."""
     return Mesh(_device_grid(shape), tuple(axes))
 
 

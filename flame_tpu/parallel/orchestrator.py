@@ -18,11 +18,11 @@ section 0); this is the end-to-end analogue SURVEY.md section 2b maps out:
   * Replicated: images/poseframe stack/dense maps — every device holds
     the frame data it needs to track its feature block.
 
-For pod-slice smoothing at speed-of-light, swap the in-jit smoother for
-parallel/pallas_halo.smooth_sharded (in-kernel RDMA ring); this class is
-about END-TO-END correctness and the sharding contract of every stage,
-which the multi-chip dry run (`__graft_entry__.dryrun_multichip`) and
-tests/test_sharded_e2e.py exercise on virtual CPU meshes.
+SolverParams(smoother="halo") swaps the GSPMD-partitioned vertex smoother
+for the vertex-partitioned halo-exchange one (parallel/halo.py). The
+multi-device dry run (`__graft_entry__.dryrun_multichip`) and
+tests/test_sharded_e2e.py exercise both on virtual CPU meshes;
+`chip_smoke.py --four-cards` runs both on four GPUs.
 """
 
 from typing import Optional
@@ -41,7 +41,7 @@ class ShardedFlame(Flame):
     """Flame with its persistent device state sharded over a Mesh.
 
     Every update() then compiles/executes the same fused pipeline steps
-    as the single-chip path, partitioned by GSPMD across the mesh:
+    as the single-device path, partitioned by GSPMD across the mesh:
     feature-indexed arrays (filter state, graph vertex state, per-edge
     arrays) are sharded on the mesh axis; frames, poseframe stack, and
     dense outputs are replicated.
@@ -51,43 +51,12 @@ class ShardedFlame(Flame):
                  params: Params = None, mesh: Optional[Mesh] = None):
         self.mesh = mesh if mesh is not None else make_mesh()
         self._ba_mesh = self.mesh  # routes BA through the psum'd assembly
-        self._sharding_mesh = self.mesh  # pod-slice smoother routing
+        self._sharding_mesh = self.mesh  # halo smoother routing
         params = params or Params()
         n = int(self.mesh.devices.size)
         if params.feature_capacity % n or params.edge_capacity % n:
             raise ValueError("feature/edge capacity must divide the mesh "
                              f"size {n}")
-        mode = params.solver.smoother
-        if mode in ("auto", "pallas"):
-            # The single-chip Pallas kernel is a one-core kernel; under a
-            # mesh the choices are the GSPMD-partitionable XLA vertex
-            # formulation ("vertex", the safe default) or the explicit
-            # pod-slice smoothers ("halo" — ppermute boundary strips —
-            # and "pallas_halo" — in-kernel RDMA ring), which run
-            # end-to-end through post_delaunay_step. An explicit
-            # "pallas" request is rewritten with a WARNING, never
-            # silently (VERDICT r2 weak #5).
-            if mode == "pallas":
-                import warnings
-                warnings.warn(
-                    "ShardedFlame: smoother='pallas' is single-chip; "
-                    "using 'vertex' (want a pod-slice kernel? use "
-                    "'pallas_halo')", stacklevel=2)
-            import dataclasses
-            params = params.replace(
-                solver=dataclasses.replace(params.solver,
-                                           smoother="vertex"))
-        if params.solver.smoother == "pallas_halo":
-            rows = params.feature_capacity // 128
-            if rows % n or rows // n < params.solver.pallas_reach:
-                # Same constraints smooth_sharded asserts mid-sequence;
-                # fail at construction with an actionable message.
-                raise ValueError(
-                    f"pallas_halo needs rank rows (feature_capacity/128 "
-                    f"= {rows}) divisible by the mesh size {n} with >= "
-                    f"pallas_reach ({params.solver.pallas_reach}) rows "
-                    f"per device; raise feature_capacity or shrink the "
-                    f"mesh/reach")
         super().__init__(width, height, K, Kinv, params)
 
         shard = NamedSharding(self.mesh, P(AXIS))

@@ -1,7 +1,7 @@
-"""Multi-chip sharding of the dense-mapping pipeline.
+"""Multi-device sharding of the dense-mapping pipeline.
 
 The reference has no distributed computation of any kind (SURVEY.md
-section 0); this layer is the TPU-native scale-out the north star requires:
+section 0); this layer is the scale-out across devices:
 
   * Feature-parallel tracking (the DP axis): feature slots are block-
     partitioned across devices with shard_map; images/poses are replicated.
@@ -9,13 +9,13 @@ section 0); this layer is the TPU-native scale-out the north star requires:
     OpenMP loop, flame.cc:1307).
   * Edge-parallel smoothing (the TP/graph axis): the NLTGV2 dual step and
     per-edge primal contributions are computed on each device's edge shard;
-    per-vertex sums are combined with one psum over the ICI per iteration,
-    after which the (replicated) vertex update is computed identically
-    everywhere. This is the reduction formulation of the graph solve —
-    collectives ride the ICI, vertices never move.
+    per-vertex sums are combined with one psum over the interconnect per
+    iteration, after which the (replicated) vertex update is computed
+    identically everywhere. This is the reduction formulation of the
+    graph solve — vertices never move.
 
-Both shardings compose into one pjit-ed update step (sharded_update_step)
-used by the multi-chip dry run and, on pod slices, the production path.
+Both shardings compose into one jitted update step (sharded_update_step)
+used by the multi-device dry run.
 """
 
 import functools
@@ -32,7 +32,7 @@ from flame_tpu.core.frame import Frame, FrameStack
 
 AXIS = "graph"
 
-# ICI traffic of the most recently TRACED sharded_smooth configuration
+# Interconnect traffic of the most recently TRACED sharded_smooth config
 # (assigned at trace time only — cached executions do not update it;
 # for multi-config telemetry call psum_traffic_model directly).
 LAST_TRAFFIC = None
@@ -40,10 +40,10 @@ LAST_TRAFFIC = None
 
 def psum_traffic_model(V: int, n_dev: int, n_iters: int,
                        dtype_bytes: int = 4) -> dict:
-    """Analytical ICI traffic of the edge-sharded smoother: one (V, 3)
+    """Analytical interconnect traffic of the edge-sharded smoother: one (V, 3)
     float32 psum per iteration. A ring all-reduce moves ~2(n-1)/n of the
     payload through each device — O(V) VOLUME scaling, the contrast to
-    the halo smoothers' O(1) boundary exchange (halo.traffic_model)."""
+    the halo smoother's O(1) boundary exchange (halo.traffic_model)."""
     payload = V * 3 * dtype_bytes
     per_dev = int(2 * (n_dev - 1) / max(n_dev, 1) * payload)
     return {
@@ -75,9 +75,9 @@ def _sharded_smooth_body(p: RegularizerParams, n_iters: int,
 
     Runs n_iters Chambolle-Pock iterations with one (V, 3) psum per
     iteration, using the same stacked gather-minimized formulation as the
-    single-chip hot loop (nltgv2._smooth_stacked): two row gathers of the
+    single-device hot loop (nltgv2._smooth_stacked): two row gathers of the
     replicated (V, 8) bar-state per local edge shard, two row segment-sums,
-    then the psum combines the shards' vertex contributions over the ICI.
+    then the psum combines the shards' vertex contributions.
     """
     V = x.shape[0]
     ii = edges[:, 0]
@@ -118,7 +118,7 @@ def _sharded_smooth_body(p: RegularizerParams, n_iters: int,
 
         S = jax.ops.segment_sum(Ci, ii, num_segments=V) + \
             jax.ops.segment_sum(Cj, jj, num_segments=V)
-        S = jax.lax.psum(S, AXIS)  # combine edge shards over the ICI
+        S = jax.lax.psum(S, AXIS)  # combine edge shards
 
         nx = x + S[:, 0]
         nw1 = w1 + S[:, 1]
@@ -176,7 +176,7 @@ def sharded_smooth(p: RegularizerParams, g: nltgv2.GraphState, n_iters: int,
 
 # ---------------------------------------------------------------------------
 # Feature-sharded tracking + edge-sharded smoothing: the full sharded
-# per-frame step (used by the multi-chip dry run and pod-slice deployment).
+# per-frame step (used by the multi-device dry run).
 # ---------------------------------------------------------------------------
 
 
@@ -188,8 +188,8 @@ def sharded_update_step(params: Params, mesh: Mesh, smoother: str = "edge"):
     where feature arrays are sharded over the mesh axis for tracking (DP)
     and the smoothing iterations run either edge-sharded with a per-
     iteration psum (smoother="edge", replicated vertices) or vertex-
-    partitioned with halo exchange (smoother="halo", pod-slice mode —
-    pass the RCM perm/inv/ranks trailing args; see parallel/halo.py).
+    partitioned with halo exchange (smoother="halo" — pass the RCM
+    perm/inv/ranks trailing args; see parallel/halo.py).
     """
     n_dev = mesh.devices.size
     assert params.feature_capacity % n_dev == 0, "feature capacity % devices"
@@ -220,30 +220,19 @@ def sharded_update_step(params: Params, mesh: Mesh, smoother: str = "edge"):
         in_specs=(rep, rep, stack_rep, fshard_tree, frame_rep, rep),
         out_specs=(fshard_tree, curr_shard, P(AXIS), P(AXIS), obs_shard))
 
-    if smoother in ("halo", "pallas_halo"):
+    if smoother == "halo":
         from flame_tpu.parallel import halo as halo_mod
-        from flame_tpu.parallel import pallas_halo as ph_mod
 
         def step(K, Kinv, stack, feats, fnew, curr_pf_slot, graph,
                  perm, inv_perm, ranks_p):
             feats2, curr, member, stats, _obs = tracked(
                 K, Kinv, stack, feats, fnew, curr_pf_slot)
-            if smoother == "pallas_halo":
-                # In-kernel RDMA halo exchange (parallel/pallas_halo.py):
-                # the whole iteration loop runs VMEM-resident per device.
-                graph2 = ph_mod.smooth_sharded(
-                    params.rparams, graph, perm, inv_perm, ranks_p,
-                    params.solver.n_iters_per_frame,
-                    params.solver.max_vertex_degree, mesh, axis=AXIS,
-                    reach=params.solver.pallas_reach,
-                    interpret=jax.default_backend() != "tpu")
-            else:
-                graph2 = halo_mod.halo_smooth(
-                    params.rparams, graph, perm, inv_perm, ranks_p,
-                    params.solver.n_iters_per_frame,
-                    params.solver.max_vertex_degree, mesh,
-                    halo=min(params.feature_capacity // n_dev,
-                             (params.solver.pallas_reach + 1) * 128))
+            graph2 = halo_mod.halo_smooth(
+                params.rparams, graph, perm, inv_perm, ranks_p,
+                params.solver.n_iters_per_frame,
+                params.solver.max_vertex_degree, mesh,
+                halo=halo_mod.strip_width(params.feature_capacity, n_dev,
+                                          params.solver.pallas_reach))
             stats = jnp.sum(stats.reshape(n_dev, -1), axis=0)
             return feats2, curr, member, graph2, stats
 

@@ -1,6 +1,6 @@
 """Batched LSD-SLAM-style inverse-depth filtering.
 
-TPU-native re-design of the reference's per-feature recursive Bayesian
+JAX re-design of the reference's per-feature recursive Bayesian
 filter (/root/reference/src/flame/stereo/inverse_depth_filter.cc): predict
 (reproject mean + (mu'/mu)^4 variance inflation), +/-sigma epipolar
 search-region construction with Liang-Barsky clipping and length clamps,
@@ -132,7 +132,7 @@ def _gate_and_match(params: FilterParams, ref_patch, img_cmp, u_start,
                     u_end, rescale_factor, n_steps: int) -> SearchResult:
     """Patch-gradient gate + line-stereo match + status-code mapping —
     ONE definition shared by search/search_stacked (the two paths must
-    map failures identically; ADVICE r3)."""
+    map failures identically)."""
     grads = jnp.abs(ref_patch[:, 1:] - ref_patch[:, :-1])
     ref_grad_ok = jnp.max(grads, axis=-1) >= params.min_grad_mag
 
@@ -187,8 +187,7 @@ def search_stacked(params: FilterParams, geo_batch,
     imgs_pack: optional persistent packed-corner table of imgs_ref
     (FrameStack.img_pack). When given, the 5-tap ref-patch sampling is one
     row gather against it instead of a 4-corner element gather into the
-    20 MB stack — the second-largest device cost of the track loop in the
-    r4b profile (584 -> ~212 us/frame measured on v5e).
+    20 MB stack.
     """
     epi_ref = jax.vmap(epipolar.reference_epiline)(
         geo_batch, u_ref)  # (N, 2)

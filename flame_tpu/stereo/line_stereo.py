@@ -1,6 +1,6 @@
 """Batched epipolar line stereo matching.
 
-TPU-native re-design of the reference's per-feature sliding-window SSD
+JAX re-design of the reference's per-feature sliding-window SSD
 matcher (/root/reference/src/flame/stereo/line_stereo.h:75-385, itself
 derived from LSD-SLAM). The reference walks the epiline with a rolling
 5-sample buffer in a data-dependent while loop; here the walk becomes a

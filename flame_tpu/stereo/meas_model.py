@@ -1,6 +1,6 @@
 """Inverse-depth measurement model (LSD-SLAM noise model), batched.
 
-TPU-native re-design of the reference's InverseDepthMeasModel
+JAX re-design of the reference's InverseDepthMeasModel
 (/root/reference/src/flame/stereo/inverse_depth_meas_model.cc:49-156):
 converts a pixel correspondence (u_ref, u_cmp) into an inverse-depth
 measurement (mu, var) where var combines geometric epipolar-line noise
@@ -32,7 +32,7 @@ def _noise_model(params: MeasModelParams, d2i, u_ref, u_inf, epi,
     finite-difference alpha slope (the per-frame and stacked variants
     differ only in how their geometry batch is threaded). ONE definition
     of the gates/variances — the two entry points below must never
-    diverge (ADVICE r3). Returns (ok, mu, var).
+    diverge. Returns (ok, mu, var).
     """
     bad_disp = disp < 1e-3
     bad_mu = mu < 0.0

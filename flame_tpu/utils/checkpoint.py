@@ -11,7 +11,7 @@ save() first QUIESCES the instance — flushes any buffered batch frames
 (solver.frame_batch) through the pipeline and drains the asynchronous
 fetch/triangulation stages into their host-side canonical form — then
 snapshots device state, host mirrors, staged topology, and the BA
-observation store (VERDICT r2 #6: a checkpoint must not lose buffered
+observation store (a checkpoint must not lose buffered
 frames or the BA window history). Because the quiesce mutates the live
 instance into exactly the state load() reproduces, a run that saves and
 continues is bit-identical to a run that restores and continues (tested
@@ -200,9 +200,9 @@ def load(path: str, fl) -> None:
         """Restore an array WITH the live instance's placement: under a
         ShardedFlame the constructor already laid out empty state with
         its NamedShardings, so re-placing each restored array with its
-        prototype's sharding preserves the mesh layout (VERDICT r3 #5 —
-        a plain jnp.asarray silently collapsed a resumed ShardedFlame
-        onto one device). Single-device instances see a no-op."""
+        prototype's sharding preserves the mesh layout (a plain
+        jnp.asarray would collapse a resumed ShardedFlame onto one
+        device). Single-device instances see a no-op."""
         if isinstance(proto, jax.Array):
             return jax.device_put(arr, proto.sharding)
         return jnp.asarray(arr)

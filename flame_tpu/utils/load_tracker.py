@@ -4,7 +4,7 @@ Re-design of the reference's LoadTracker
 (/root/reference/src/flame/utils/load_tracker.h:83-400): CPU utilization
 (system-wide and per-process, from /proc/stat and /proc/<pid>/stat) and
 memory/swap usage (from /proc/meminfo and /proc/<pid>/status). Pure-host
-observability, plus the TPU-side addition: device memory stats via
+observability, plus the device-side addition: device memory stats via
 jax.local_devices()[0].memory_stats() when the backend exposes them.
 """
 
@@ -88,7 +88,7 @@ class LoadTracker:
             process_rss_kb=rss, process_swap_kb=swap)
 
     def device_memory(self) -> Optional[Dict[str, int]]:
-        """TPU/accelerator memory stats, when the backend exposes them."""
+        """Accelerator memory stats, when the backend exposes them."""
         try:
             import jax
             stats = jax.local_devices()[0].memory_stats()

@@ -5,7 +5,7 @@ API-compatible re-design of the reference's StatsTracker
 timers in milliseconds, set/add scalar stats, and key prefixing. Thread-safe
 via a single lock, like the reference. Adds: EMA timings, structured
 snapshot export, and optional jax.profiler trace annotation around
-tick/tock pairs (the TPU-native analogue of per-stage printf timing,
+tick/tock pairs (the analogue of per-stage printf timing,
 reference params.h:113-132).
 """
 

@@ -1,4 +1,4 @@
-"""Above-VGA datapoint for the capacity machinery (VERDICT r4 #4).
+"""Above-VGA datapoint for the capacity machinery.
 
 Every other quality/perf datapoint in the repo sits at or below VGA; the
 capacity machinery (degree/reach/edge caps, the PACK_XY_SCALE packed-
@@ -6,9 +6,8 @@ coordinate ceiling at 2047 px, longest-edge-first shedding) claims
 generality. This runs the full pipeline at 1024x768 with a 2048-feature
 budget on the CPU backend and asserts (a) dense-map quality holds, (b)
 no capacity counter fired, (c) the packed-coordinate bound admits the
-resolution (and still rejects one past the ceiling). The TPU throughput
-sample at this resolution is recorded in NOTES.md (bench.py
-BENCH_RES=1024x768 BENCH_FEATS=8192).
+resolution (and still rejects one past the ceiling). bench.py measures
+this resolution with BENCH_RES=1024x768 BENCH_FEATS=8192.
 """
 
 import numpy as np

@@ -1,7 +1,7 @@
 """Dataset-scale accuracy regression on the deterministic mini-TUM
 sequence (flame_tpu/io/synthetic.py): dense depth error against ray-cast
 ground truth through the real TUM loader path, and ATE of BA-refined
-poses vs noisy input poses (VERDICT r1 item 4 / BASELINE.md rows 3-4).
+poses vs noisy input poses (BASELINE.md rows 3-4).
 Recorded reference numbers live in DATASETS.md."""
 
 import numpy as np
@@ -100,7 +100,7 @@ def test_ba_on_exact_poses_keeps_depth_quality(mini_tum):
     the write-back innovation gate (BAParams.writeback_min_dt) skips
     rewriting converged filter depths when a solve barely moves the
     poses (pre-gate measurement: median err 0.0026 vs 0.0002 BA-off on
-    an exact-pose run, NOTES r4)."""
+    an exact-pose run)."""
     root, meta = mini_tum
     fl_off = run_tum(root, do_ba=False)
     fl_ba = run_tum(root, do_ba=True)  # ground-truth poses

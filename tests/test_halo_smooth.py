@@ -7,11 +7,11 @@ import jax.numpy as jnp
 import pytest
 from jax.sharding import Mesh
 
-from flame_tpu.optimize import nltgv2, pallas_smoother
+from flame_tpu.optimize import nltgv2
 from flame_tpu.parallel import halo
 from flame_tpu.params import RegularizerParams
 
-import tests.test_pallas_smoother as tps
+from tests._graphs import make_graph
 
 V_CAP = 1024
 E_CAP = 4096
@@ -19,22 +19,61 @@ DEGREE = 16
 HALO = 256
 
 
+def _rank_inputs(edges_sorted, n_e, member, reach, degree=DEGREE):
+    perm = halo.rcm_order(edges_sorted, n_e, V_CAP, member)
+    inv = np.empty(V_CAP, np.int32)
+    inv[perm] = np.arange(V_CAP, dtype=np.int32)
+    ranks = halo.perm_edge_ranks(edges_sorted, n_e, inv, E_CAP, degree,
+                                 reach=reach)
+    return perm, inv, ranks
+
+
 @pytest.fixture(scope="module")
 def setup():
-    # Reuse the pallas test's graph builder at a larger capacity.
-    tps_v, tps_e = tps.V_CAP, tps.E_CAP
-    tps.V_CAP, tps.E_CAP = V_CAP, E_CAP
-    try:
-        g, edges_sorted, n_e, member = tps._make_graph(seed=3, n_pts=700)
-        perm = pallas_smoother.rcm_order(edges_sorted, n_e, V_CAP, member)
-        inv = np.empty(V_CAP, np.int32)
-        inv[perm] = np.arange(V_CAP, dtype=np.int32)
-        ranks = pallas_smoother.perm_edge_ranks(
-            edges_sorted, n_e, inv, E_CAP, DEGREE, reach=HALO // 128 - 1)
-        assert (ranks[:n_e] < 255).all(), "drops in test graph"
-    finally:
-        tps.V_CAP, tps.E_CAP = tps_v, tps_e
+    g, edges_sorted, n_e, member = make_graph(V_CAP, E_CAP, DEGREE, seed=3,
+                                              n_pts=700)
+    perm, inv, ranks = _rank_inputs(edges_sorted, n_e, member,
+                                    reach=HALO // halo.LANES - 1)
+    assert (ranks[:n_e] < 255).all(), "drops in test graph"
     return g, jnp.asarray(perm), jnp.asarray(inv), jnp.asarray(ranks)
+
+
+def test_rcm_band_within_reach():
+    """Every edge perm_edge_ranks keeps spans at most `reach` rank rows,
+    and the RCM order is a permutation with the members first."""
+    _, edges_sorted, n_e, member = make_graph(V_CAP, E_CAP, DEGREE, seed=3,
+                                              n_pts=700)
+    reach = 1
+    perm, inv, ranks = _rank_inputs(edges_sorted, n_e, member, reach)
+    assert np.array_equal(np.sort(perm), np.arange(V_CAP))
+    assert member[perm[:member.sum()]].all()
+    kept = ranks[:n_e, 0] != 255
+    lo = inv[edges_sorted[:n_e, 0]] // halo.LANES
+    hi = inv[edges_sorted[:n_e, 1]] // halo.LANES
+    assert kept.any()
+    assert (np.abs(lo - hi)[kept] <= reach).all()
+
+
+def test_rank_drops_symmetric():
+    """A band or degree overflow on either endpoint drops the edge on BOTH
+    (255 in both rank columns), so the two dual copies stay identical;
+    kept edges hold distinct slots below the degree on each vertex."""
+    _, edges_sorted, n_e, member = make_graph(V_CAP, E_CAP, DEGREE, seed=3,
+                                              n_pts=700)
+    degree = 5  # below the Delaunay degree of many vertices
+    perm, inv, ranks = _rank_inputs(edges_sorted, n_e, member, reach=0,
+                                    degree=degree)
+    r = ranks[:n_e]
+    dropped = (r[:, 0] == 255) | (r[:, 1] == 255)
+    assert dropped.any() and not dropped.all()
+    assert ((r[:, 0] == 255) == (r[:, 1] == 255)).all()
+    assert (r[~dropped] < degree).all()
+    # Each vertex's kept slots are distinct (src and dst never collide).
+    lo = inv[edges_sorted[:n_e, 0]][~dropped]
+    hi = inv[edges_sorted[:n_e, 1]][~dropped]
+    slot = np.concatenate([lo * degree + r[~dropped, 0],
+                           hi * degree + r[~dropped, 1]])
+    assert np.unique(slot).shape[0] == slot.shape[0]
 
 
 def test_matches_reference_step(setup):

@@ -93,7 +93,7 @@ def test_orientation_cutoff_boundary_band(kk):
     """The 60-degree hard cutoff runs in f32 (score_jax serves both the
     device AND the host score() since r4); pin the accept/reject flip to
     a band far narrower than any caller cares about, so f32 rounding
-    cannot silently move the boundary (ADVICE r4). The score's local
+    cannot silently move the boundary. The score's local
     sensitivity at the cutoff is d s/d theta = sin(120 deg) ~ 0.87 per
     radian, so f32 resolution locates the flip to ~1e-7 rad; we assert
     +/-0.005 deg (9e-5 rad), three orders of margin. A good sideways
@@ -200,7 +200,7 @@ def test_no_candidates_falls_back(kk):
 
 
 def test_detection_fires_with_degenerate_prev_frame():
-    """VERDICT r1 item 2 acceptance: the current poseframe has near-zero
+    """The current poseframe has near-zero
     baseline to the previous frame, but an older poseframe provides a good
     stereo geometry — detection must still produce insertable winners."""
     from flame_tpu.core import pipeline, frame as frame_mod

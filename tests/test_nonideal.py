@@ -1,4 +1,4 @@
-"""Non-ideal imagery stress (VERDICT r2 #4): an occluding box in the
+"""Non-ideal imagery stress: an occluding box in the
 ray-cast corridor (true depth discontinuity + genuinely occluded epipolar
 matches) and photometric nuisance (exposure drift + sensor noise).
 
@@ -163,7 +163,7 @@ def drive_tex(fl, K, **render_kw):
 
 
 def test_textureless_region_yields_no_features_and_interpolates():
-    """VERDICT r3 #4a: a texture-free wall patch. The detection grid must
+    """A texture-free wall patch. The detection grid must
     yield NO features inside it (zero gradient < min_grad_mag, reference
     flame.cc:1216-1251 semantics), the mesh must INTERPOLATE across it
     (coverage holds), and depth error must stay bounded (the wall is
@@ -228,7 +228,7 @@ def _picket_fence(K, cam_x, width, height, plane_z, band_px,
 
 
 def test_repetitive_texture_fires_ambiguity_gate():
-    """VERDICT r3 #4b: periodic texture produces repeated near-identical
+    """Periodic texture produces repeated near-identical
     SSD minima along the epipolar search line. The second-best ambiguity
     gate (reference line_stereo.h:273-283) must FIRE — far more ambiguous
     rejections than the same scene with fractal texture — rather than

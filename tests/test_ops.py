@@ -6,6 +6,7 @@ rasterization_test.cc)."""
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 
 from flame_tpu.ops import interp, gradients, pyramid, clipping, rasterize
 
@@ -342,60 +343,57 @@ def test_interpolate_mesh_vertex_validity():
     assert not np.isnan(img[4, 9])
 
 
-def test_pallas_rasterizer_matches_bruteforce(rng):
-    """The fused Pallas tile rasterizer (ops/pallas_raster.py, interpret
-    mode here) must reproduce the brute-force rasterizer exactly on a
-    random Delaunay mesh."""
+def _random_delaunay(rng, n, hi, T=512):
     from scipy.spatial import Delaunay as SDelaunay
-    from flame_tpu.ops import pallas_raster
-
-    H, W = 120, 160
-    pts = rng.uniform([4, 4], [156, 116], (180, 2)).astype(np.float32)
+    pts = rng.uniform([4, 4], hi, (n, 2)).astype(np.float32)
     sd = SDelaunay(pts)
-    T = 512
     tris = np.zeros((T, 3), np.int32)
     tris[:sd.simplices.shape[0]] = sd.simplices
     tm = np.zeros(T, bool)
     tm[:sd.simplices.shape[0]] = True
+    return pts, tris, tm
+
+
+def test_rasterize_auto_matches_bruteforce(rng):
+    """The production rasterizer (rasterize_auto, tile-binned) must
+    reproduce the brute-force rasterizer exactly on a random Delaunay
+    mesh."""
+    H, W = 120, 160
+    pts, tris, tm = _random_delaunay(rng, 180, [156, 116])
     vals = rng.uniform(0.5, 2.0, 180).astype(np.float32)
 
     ref = np.asarray(rasterize.rasterize_bruteforce(
         jnp.asarray(pts), jnp.asarray(tris), jnp.asarray(vals),
         jnp.asarray(tm), H, W))
-    out = np.asarray(pallas_raster.rasterize(
+    out = np.asarray(rasterize.rasterize_auto(
         jnp.asarray(pts), jnp.asarray(tris), jnp.asarray(vals),
-        jnp.asarray(tm), H, W, max_per_tile=512, interpret=True))
+        jnp.asarray(tm), H, W))
     assert (np.isnan(ref) == np.isnan(out)).all()
     m = ~np.isnan(ref)
     np.testing.assert_allclose(out[m], ref[m], atol=1e-5)
 
 
-def test_pallas_rasterize_batch_matches_per_view(rng):
-    """rasterize_batch (shared union-bbox binning, interpret mode) must
-    reproduce per-view rasterize_bruteforce exactly: shifted viewpoints
-    of one triangle set, per-view values and validity."""
-    from scipy.spatial import Delaunay as SDelaunay
-    from flame_tpu.ops import pallas_raster
-
+@pytest.mark.parametrize("B", [1, 4])
+def test_rasterize_batch_auto_matches_per_view(rng, B):
+    """rasterize_batch_auto must reproduce per-view rasterize_bruteforce
+    exactly: shifted viewpoints of one triangle set, per-view values and
+    validity. 150 vertices in 136x96 px (one per ~87 px²) is about the
+    bench's feature density, which overflowed the earlier per-cell
+    capacity of 40."""
     H, W = 120, 160
-    pts = rng.uniform([4, 4], [140, 100], (150, 2)).astype(np.float32)
-    sd = SDelaunay(pts)
-    T = 512
-    tris = np.zeros((T, 3), np.int32)
-    tris[:sd.simplices.shape[0]] = sd.simplices
-    B = 3
+    pts, tris, tm = _random_delaunay(rng, 150, [140, 100])
     # Per-view positions: translated + slightly scaled (projection-style
     # motion); per-view values and validity differ too.
     verts_b = np.stack([pts * (1.0 + 0.01 * b) + np.array([3.0 * b, -2.0 * b])
                         for b in range(B)]).astype(np.float32)
     vals_b = rng.uniform(0.5, 2.0, (B, 150)).astype(np.float32)
-    tm_b = np.zeros((B, T), bool)
-    tm_b[:, :sd.simplices.shape[0]] = True
-    tm_b[1, :10] = False  # view-specific invalidation
+    tm_b = np.repeat(tm[None], B, axis=0)
+    tm_b[B - 1, :10] = False  # view-specific invalidation
 
-    out = np.asarray(pallas_raster.rasterize_batch(
+    out = np.asarray(rasterize.rasterize_batch_auto(
         jnp.asarray(verts_b), jnp.asarray(tris), jnp.asarray(vals_b),
-        jnp.asarray(tm_b), H, W, max_per_tile=512, interpret=True))
+        jnp.asarray(tm_b), H, W))
+    assert out.shape == (B, H, W)
     for b in range(B):
         ref = np.asarray(rasterize.rasterize_bruteforce(
             jnp.asarray(verts_b[b]), jnp.asarray(tris),

@@ -163,7 +163,7 @@ def test_alpha_clamped():
 
 def test_capacity_truncation_counted():
     """Overflowing a deliberately tiny triangle/edge capacity must be
-    counted, not silent (VERDICT r1 item 6)."""
+    counted, not silent."""
     from flame_tpu.core import pipeline
     params = Params(
         feature_capacity=256, edge_capacity=16, triangle_capacity=8,
@@ -210,7 +210,7 @@ def test_snapshot_dedupe():
 def test_batch_tracking_bit_equal_sequential():
     """The scan-based batch body must reproduce the sequential per-frame
     tracking EXACTLY given identical pre-dispatch state (the PARITY.md
-    claim, as qualified per ADVICE r2: later batch frames legitimately
+    claim, qualified: later batch frames legitimately
     see the batch-start smoothing/seed cadence, so the equality statement
     is about the tracking/measurement/fusion chain itself). Compares
     batch_step (B=2, detection off) against two frame_track_step
@@ -288,7 +288,7 @@ def test_batch_tracking_bit_equal_sequential():
 def test_per_frame_dense_maps_in_batch():
     """Each poseframe inside a batch must receive ITS OWN per-frame dense
     map (reference rasterizes inside every update, flame.cc:409-415) —
-    not one batch-end map copied to all (VERDICT r2 #1)."""
+    not one batch-end map copied to all."""
     fl = make_flame(4)
     drive(fl, 24)
     assert fl._dispatches >= 3

@@ -52,6 +52,16 @@ def test_dryrun_multichip_entrypoint():
     dryrun_multichip(8)
 
 
+def test_dryrun_multichip_refuses_missing_devices():
+    """Asked for more devices than the process has, the dry run raises
+    instead of substituting virtual CPU devices for the accelerator."""
+    import sys, os
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+    from __graft_entry__ import dryrun_multichip
+    with pytest.raises(RuntimeError, match="needs"):
+        dryrun_multichip(len(jax.devices()) + 1)
+
+
 def test_distributed_ba_matches_single_device():
     import sys, os
     sys.path.insert(0, os.path.dirname(__file__))

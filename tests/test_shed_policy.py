@@ -5,7 +5,7 @@ shed budget remains (the reference's update thread never blocks on its
 worker threads either — flame.cc:98-116); past the budget the head join
 becomes blocking so the host mirror cannot drift unboundedly. These
 tests drive Flame._drain_packed_queue directly with controllable fake
-transfers (the CPU backend's transfers land instantly, so real link
+transfers (the CPU backend's transfers land instantly, so real transfer
 stalls cannot be reproduced here), plus one end-to-end run under an
 artificially delayed fetch.
 """
@@ -117,7 +117,7 @@ def test_stale_head_is_shed_not_joined():
     assert stat(fl, "packed_sheds") == 1
     assert fl._sheds_since_consume == 1
     # A shed is an unready transfer: the readiness EMA must record it
-    # (else the stat reads a degraded link as perfect — r5 review).
+    # (else the stat reads lagging transfers as ready).
     assert stat(fl, "fetch_ready_frac") < 1.0
     # The un-cancellable transfer holds its link slot until it lands.
     assert fl._in_flight_fetches() == 1
@@ -176,9 +176,8 @@ def test_consecutive_sheds_then_backstop():
 
 
 def test_staging_respects_zombie_link_slots():
-    """Shed transfers keep occupying the link until they land: staging
-    depth counts them (the tunnel collapses beyond ~2 concurrent
-    streams — NOTES.md)."""
+    """Shed transfers keep occupying an in-flight slot until they land:
+    staging depth counts them."""
     fl = make_policy_flame()
     z1, z2 = FakeFetch(ready=False), FakeFetch(ready=False)
     fl._zombie_fetches = [(z1, None), (z2, None)]

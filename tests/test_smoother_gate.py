@@ -1,61 +1,56 @@
-"""resolve_smoother's feasibility gates (r5): the auto mode must never
-pick the fused Pallas kernel when its VMEM-resident state cannot fit the
-scoped allocation budget (compile-time OOM otherwise — measured 23.2 MB
-at V=8192 x degree=20 against the 16 MB default), and the
-FLAME_TPU_SCOPED_VMEM_KIB override must widen the gate."""
+"""resolve_smoother: "auto" runs the XLA vertex smoother on every backend,
+an explicit "vertex" or "halo" is honoured, "halo" needs a device mesh,
+and modes the package does not implement fail loudly at construction."""
 
-import numpy as np
 import pytest
 
 from flame_tpu.core import pipeline
 from flame_tpu.params import Params, SolverParams
 
 
-def params_with(degree):
-    return Params(feature_capacity=8192, edge_capacity=24576,
-                  triangle_capacity=16384,
-                  solver=SolverParams(max_vertex_degree=degree))
+def params_with(smoother):
+    return Params(solver=SolverParams(max_vertex_degree=20,
+                                      smoother=smoother))
 
 
-def test_auto_respects_vmem_budget(monkeypatch):
+@pytest.mark.parametrize("backend", ["cpu", "gpu"])
+def test_auto_is_vertex(monkeypatch, backend):
     import jax
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    # V=4096 x d20 fits the 16 MB default (measured ~11.6 MB live).
-    assert pipeline.resolve_smoother(
-        Params(solver=SolverParams(max_vertex_degree=20)), 4096) == "pallas"
-    # V=8192 x d20 does not (measured 23.2 MB) -> vertex fallback.
-    assert pipeline.resolve_smoother(params_with(20), 8192) == "vertex"
+    monkeypatch.setattr(jax, "default_backend", lambda: backend)
+    assert pipeline.resolve_smoother(params_with("auto")) == "vertex"
 
 
-def test_env_budget_widens_gate(monkeypatch):
+def test_vertex_is_honoured():
+    assert pipeline.resolve_smoother(params_with("vertex")) == "vertex"
+
+
+def test_halo_with_mesh_is_honoured():
+    from flame_tpu.parallel import sharding
     import jax
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    monkeypatch.setattr(pipeline, "SCOPED_VMEM_KIB", 33600)
-    assert pipeline.resolve_smoother(params_with(20), 8192) == "pallas"
+    mesh = sharding.make_mesh(jax.devices()[:2])
+    assert pipeline.resolve_smoother(params_with("halo"), mesh) == "halo"
 
 
-def test_explicit_mode_is_honored(monkeypatch):
-    """An explicit smoother choice bypasses the gates — the caller said
-    so (and may have raised the backend budget out of band)."""
-    import jax
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    p = params_with(20).replace(
-        solver=SolverParams(max_vertex_degree=20, smoother="pallas"))
-    assert pipeline.resolve_smoother(p, 8192) == "pallas"
+def test_halo_without_mesh_raises():
+    with pytest.raises(ValueError, match="mesh"):
+        pipeline.resolve_smoother(params_with("halo"))
 
 
-def test_fallback_warns_once(monkeypatch, capsys):
-    import jax
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    monkeypatch.setattr(pipeline, "_warned_pallas_vmem", False)
-    pipeline.resolve_smoother(params_with(20), 8192)
-    pipeline.resolve_smoother(params_with(20), 8192)
-    err = capsys.readouterr().err
-    assert err.count("scoped-VMEM budget") == 1
+@pytest.mark.parametrize("mode", ["pallas", "pallas_halo"])
+def test_removed_modes_raise(mode):
+    with pytest.raises(ValueError) as ei:
+        pipeline.resolve_smoother(params_with(mode))
+    msg = str(ei.value)
+    for valid in pipeline.SMOOTHERS:
+        assert valid in msg
 
 
-def test_non_multiple_of_128_falls_back(monkeypatch):
-    import jax
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    assert pipeline.resolve_smoother(
-        Params(solver=SolverParams(max_vertex_degree=20)), 1000) == "vertex"
+def test_flame_rejects_unknown_mode():
+    from flame_tpu.core.flame import Flame
+    from flame_tpu.geometry import camera
+    K = camera.make_k(100.0, 100.0, 32.0, 24.0)
+    with pytest.raises(ValueError, match="valid modes"):
+        Flame(64, 48, K, camera.inv_k(K),
+              params_with("pallas").replace(feature_capacity=64,
+                                            edge_capacity=192,
+                                            triangle_capacity=128))

@@ -11,19 +11,15 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                               "..", ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
+from flame_tpu.utils import compile_cache
 
-import tools.microbench as mb
-from tools.microbench import make_graph, timeit
+compile_cache.enable()
+
+from tools.timing import make_graph, timeit
 
 
 def main():
-    mb.RTT = mb.measure_rtt()
-    print(f"rtt {mb.RTT*1e3:.1f} ms")
+    print(f"device: {jax.devices()[0]}")
     g, edges_np, n_e, tris_np, n_used = make_graph()
     T_cap = 12288
     tris = np.zeros((T_cap, 3), np.int32)

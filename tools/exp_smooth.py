@@ -19,16 +19,13 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                               "..", ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
+from flame_tpu.utils import compile_cache
+
+compile_cache.enable()
 
 from flame_tpu.params import RegularizerParams
 from flame_tpu.optimize import nltgv2
-from tools.microbench import make_graph, measure_rtt, timeit
-import tools.microbench as mb
+from tools.timing import make_graph, timeit
 
 
 def _prox_conj(q):
@@ -181,8 +178,7 @@ def smooth_incidence(p, g, n_iters, inc_edge, inc_sign):
 
 
 def main():
-    mb.RTT = measure_rtt()
-    print(f"device: {jax.devices()[0]}  rtt {mb.RTT*1e3:.1f} ms")
+    print(f"device: {jax.devices()[0]}")
     g, edges_np, n_e, tris_np, n_used = make_graph()
     p = RegularizerParams()
     N_IT = 40
@@ -323,8 +319,7 @@ def smooth_vertex_centric(p, g, n_iters, nbr, is_src, has, sdx, sdy, sal,
 
 
 def main_e():
-    mb.RTT = measure_rtt()
-    print(f"device: {jax.devices()[0]}  rtt {mb.RTT*1e3:.1f} ms")
+    print(f"device: {jax.devices()[0]}")
     g, edges_np, n_e, tris_np, n_used = make_graph()
     p = RegularizerParams()
     N_IT = 40

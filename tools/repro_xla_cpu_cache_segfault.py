@@ -1,16 +1,15 @@
 #!/usr/bin/env python
 """Standalone repro for the XLA:CPU executable-serialization segfault
 that forces tests/conftest.py's per-module jax.clear_caches() workaround
-(VERDICT r2 weak #7: keep the workaround from rotting by pinning a
-repro, since this sandbox has no network egress to file it upstream).
+(pinned as a repro so the workaround does not outlive the bug).
 
 Symptom: with the persistent compilation cache enabled, a single process
 that compiles many distinct executables eventually SEGFAULTS inside the
 cache-write path (executable serialization), not in user code. Observed
-on jax 0.9.x / CPU PJRT on this 2-vCPU linux host: the flame_tpu test
-suite died deterministically at a few hundred accumulated executables
-(always at the same test on a cold cache; the same test is clean in
-isolation or after jax.clear_caches()).
+on jax 0.9.x / CPU PJRT: the flame_tpu test suite died deterministically
+at a few hundred accumulated executables (always at the same test on a
+cold cache; the same test is clean in isolation or after
+jax.clear_caches()).
 
 This script compiles N trivially-distinct programs with the persistent
 cache on. If the bug is present it dies with SIGSEGV before finishing;
@@ -19,22 +18,25 @@ workaround (and this file) can be removed.
 
 Usage:
     python tools/repro_xla_cpu_cache_segfault.py [n_programs]
-(defaults to 600; run with a COLD cache dir for a faithful repro:
-    rm -rf /tmp/xla_cpu_repro_cache)
+(defaults to 600; run with a COLD cache for a faithful repro:
+    rm -rf .jax_cache_repro, or point JAX_COMPILATION_CACHE_DIR at an
+    empty directory)
 """
 
 import os
 import sys
 
 os.environ["JAX_PLATFORMS"] = "cpu"
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                ".."))
 
 import jax
 import jax.numpy as jnp
 
+from flame_tpu.utils import compile_cache
+
 jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir", "/tmp/xla_cpu_repro_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
+compile_cache.enable(".jax_cache_repro")
 
 
 def main():
