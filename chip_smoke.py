@@ -81,9 +81,9 @@ def require_gpu(devices, count: int = 1):
     if not devices or devices[0].platform != "gpu":
         kind = (f"{devices[0].platform} ({devices[0].device_kind})"
                 if devices else "no device")
-        raise SystemExit(f"chip_smoke: needs a GPU; JAX found {kind}")
+        raise SystemExit(f"flame_tpu: needs a GPU; JAX found {kind}")
     if len(devices) < count:
-        raise SystemExit(f"chip_smoke: needs {count} GPUs; JAX found "
+        raise SystemExit(f"flame_tpu: needs {count} GPUs; JAX found "
                          f"{len(devices)}")
 
 
@@ -278,34 +278,35 @@ def parity(fl, dev, width: int, height: int, next_frame: int):
 
 
 def stage_times(fl, views, dev, width: int, height: int, card: str,
-                reps=50):
+                calls=50):
     """Phase 4: the XLA smoother's ms per iteration and the batched
-    rasterizer's ms per batch, timed to block_until_ready."""
+    rasterizer's ms per batch: `calls` calls back to back, timed to
+    block_until_ready, best of 5."""
     import jax
     from flame_tpu.utils import device_parity as dp
+    from tools.timing import timeit
 
-    def timed(fn, *args):
-        jax.block_until_ready(fn(*args))
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            out = fn(*args)
-        jax.block_until_ready(out)
-        return (time.perf_counter() - t0) / reps * 1e3
+    def ms_per_call(fn, *args):
+        def run():
+            for _ in range(calls):
+                out = fn(*args)
+            jax.block_until_ready(out)
+        return timeit(run, inner=calls) * 1e3
 
     p = fl.params
     n_it = p.solver.n_iters_per_frame
     graph = jax.device_put(fl._graph, dev)
-    ms_call = timed(lambda g: dp._smooth(p.rparams, g, n_it), graph)
+    ms_call = ms_per_call(lambda g: dp._smooth(p.rparams, g, n_it), graph)
     V, D = graph.inc_edge.shape
     print(f"phase 4: XLA vertex smoother {ms_call / n_it:.5f} ms/iteration "
-          f"(V={V}, D={D}, {n_it} iterations per call, {reps} calls) "
-          f"on {card}", flush=True)
+          f"(V={V}, D={D}, {n_it} iterations per call) on {card}",
+          flush=True)
     dev_views = jax.device_put(views, dev)
-    ms_batch = timed(lambda *a: dp._raster_batch(*a, height, width),
-                     *dev_views)
+    ms_batch = ms_per_call(lambda *a: dp._raster_batch(*a, height, width),
+                           *dev_views)
     print(f"phase 4: XLA batched rasterizer {ms_batch:.4f} ms/batch "
-          f"(B={views[0].shape[0]}, T={views[1].shape[0]}, {width}x{height},"
-          f" {reps} calls) on {card}", flush=True)
+          f"(B={views[0].shape[0]}, T={views[1].shape[0]}, {width}x{height})"
+          f" on {card}", flush=True)
 
 
 def four_cards(devs, width: int, height: int, n_feats: int, n_frames=40):

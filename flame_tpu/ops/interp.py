@@ -69,11 +69,10 @@ def bilinear(img: jax.Array, x: jax.Array, y: jax.Array,
         v = _pack4(flat, W)[idx00].astype(jnp.float32)
     else:
         # Small query (e.g. one sample per feature, 4096 of 307k
-        # pixels): gather the 4 corners directly. The r4 device profile
-        # measured the table path at ~0.25 ms per call here (the table
-        # build + an XLA layout transpose of the full-image table) vs
-        # ~30 us for the 4N-element gather. Under vmap x.size is the
-        # per-lane size, so vmapped per-feature calls take this path.
+        # pixels): gather the 4 corners directly — the table path would
+        # pay a full-image table build and layout transpose to serve a
+        # few thousand samples. Under vmap x.size is the per-lane size,
+        # so vmapped per-feature calls take this path.
         idx = jnp.stack([idx00, idx00 + 1, idx00 + W, idx00 + W + 1],
                         axis=-1)
         v = flat[idx]
@@ -104,7 +103,7 @@ def bilinear_stack(imgs: jax.Array, frame_idx: jax.Array, x: jax.Array,
     Callers whose stack is STATIC across many samples in one dispatch
     force True — the per-call table build amortizes — while in-scan
     callers over a MUTATING stack must never pack (the table would
-    rebuild every scan iteration; r4 profile).
+    rebuild every scan iteration).
     """
     F, H, W = imgs.shape
     x = jnp.clip(x, 0.0, W - 1.001)
@@ -123,14 +122,11 @@ def bilinear_stack(imgs: jax.Array, frame_idx: jax.Array, x: jax.Array,
     flat = imgs.reshape(-1).astype(jnp.float32)
     # Same size gate as bilinear(): the packed-corner table is O(stack),
     # so it only pays when the sample count is within ~an order of the
-    # pixel count. The r2 microbench (one-off call, static stack)
-    # measured the pack slightly ahead even for the 5-tap ref-patch
-    # query (0.37 vs 0.53 ms at 20k rows) — but inside batch_step's
-    # scan the poseframe stack MUTATES mid-batch, so XLA rebuilt the
-    # 80 MB table + ran 4 full-stack layout-conversion loops EVERY
-    # scan iteration to serve those 20k samples: ~2 ms/frame, the
-    # single largest item in the r4 device profile. The direct 4-corner
-    # gather is O(samples) regardless of stack mutation.
+    # pixel count. Inside batch_step's scan the poseframe stack MUTATES
+    # mid-batch, so a pack there rebuilds the 80 MB table (and runs
+    # full-stack layout-conversion loops) EVERY scan iteration to serve
+    # ~20k ref-patch samples. The direct 4-corner gather is O(samples)
+    # regardless of stack mutation.
     if packed if packed is not None else (x.size * 8 >= imgs.size):
         # Packed-corner row gather as in bilinear(); the roll wraparound
         # between adjacent frames is never gathered (interior clamp keeps
@@ -148,15 +144,15 @@ def pack_image(img: jax.Array, dtype=jnp.bfloat16) -> jax.Array:
 
     The rows are kept FLAT frame-major in FrameStack.img_pack — reshaping
     a (F, T, 4) scan carry for the gather made XLA insert per-iteration
-    layout-conversion loops (r4c trace, ~4.7 ms/frame).
+    layout-conversion loops.
 
     bf16 storage is exact for integer-valued (u8-sourced) images — see
     bilinear(); it also halves the gathered bytes and the table footprint
     (LineStereoParams.table_bf16 selects the dtype for the pipeline's
     tables). Built once per frame at poseframe-insert time (frame.insert*),
-    NOT per sample query: the r4 profile measured in-scan full-image table
-    rebuilds at ~2 ms/frame, which is why bilinear_stack gates on query
-    size — the persistent per-slot table removes the rebuild entirely.
+    NOT per sample query: an in-scan full-image table rebuild per frame is
+    why bilinear_stack gates on query size — the persistent per-slot table
+    removes the rebuild entirely.
     """
     return _pack4(img.reshape(-1).astype(jnp.float32), img.shape[1]) \
         .astype(dtype)

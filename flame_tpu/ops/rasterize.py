@@ -16,7 +16,9 @@ Two implementations:
     Reference implementation for tests.
   * rasterize: two-level tile binning. Triangles are binned to image tiles
     by bounding box, each tile only tests its K nearest-binned triangles.
-    ~10x less work; everything stays dense and jit-friendly.
+    ~10x less work; everything stays dense and jit-friendly. When a bin
+    overflows, the call falls back to rasterize_bruteforce, so the map is
+    exact either way; rasterize_batch also returns the overflow count.
 
 Semantics matched to the reference:
   * Vertex coordinates are truncated to integers before rasterization (the
@@ -129,29 +131,42 @@ def rasterize_bruteforce(verts: jax.Array, tris: jax.Array, vals: jax.Array,
     return jnp.where(jnp.isinf(out), jnp.nan, out)
 
 
+# Bin capacities of the production rasterizer: triangles per 32x128 tile
+# and per 16x32 cell. They must exceed the largest number of triangle
+# bounding boxes that touch one tile / cell. Most triangles are small
+# (median bbox ~14 px at 4096 features over VGA), but the mesh also carries
+# long slivers (bboxes 100-600 px wide) whose bboxes pile up: in the bench
+# scene's first 36 frames the busiest tile touches ~260 and the busiest
+# cell ~125; later, stale triangles over recycled feature slots push the
+# counts far higher (ROADMAP 3.8). A larger count is not lost — the call
+# falls back to the brute-force rasterizer — but it costs that fallback's
+# time, and the overflow is counted (rasterize_batch's second output,
+# Flame.failure_stats()['raster_bin_overflow']).
+MAX_PER_TILE = 512
+MAX_PER_CELL = 256
+# Triangles per chunk of the fallback's brute-force scan: bounds its
+# (chunk, 3, H, W) edge-function temporary (~120 MB at VGA).
+FALLBACK_CHUNK = 32
+
+
 @functools.partial(jax.jit, static_argnames=(
     "height", "width", "truncate", "tile_h", "tile_w", "max_per_tile",
     "cell_h", "cell_w", "max_per_cell"))
-def rasterize(verts: jax.Array, tris: jax.Array, vals: jax.Array,
-              tri_valid: jax.Array, height: int, width: int,
-              truncate: bool = True, tile_h: int = 32, tile_w: int = 128,
-              max_per_tile: int = 512, cell_h: int = 16, cell_w: int = 32,
-              max_per_cell: int = 256) -> jax.Array:
-    """Two-level tile-binned rasterizer (production path).
+def rasterize_binned(verts: jax.Array, tris: jax.Array, vals: jax.Array,
+                     tri_valid: jax.Array, height: int, width: int,
+                     truncate: bool = True, tile_h: int = 32,
+                     tile_w: int = 128, max_per_tile: int = MAX_PER_TILE,
+                     cell_h: int = 16, cell_w: int = 32,
+                     max_per_cell: int = MAX_PER_CELL):
+    """Two-level tile-binned rasterizer, without the fallback. Returns
+    (map, overflow): overflow counts the (bin, triangle) bbox overlaps
+    that did not fit their bin's capacity; the map is exact when it is 0.
 
     Level 1 bins triangles to (tile_h x tile_w) image tiles by bbox
     overlap (mask over the full triangle array). Level 2 re-bins each
     tile's K1 candidates to (cell_h x cell_w) cells, so per-pixel work
-    drops from K1 to K2 edge-function tests. Both capacities silently
-    drop overflow triangles, so they must exceed the max local count of
-    triangle bboxes. Most triangles are small (median bbox ~14 px at the
-    bench's 4096 slots over VGA), but the mesh also carries a few hundred
-    long slivers (bbox widths of 100-600 px), and their bboxes pile up: on
-    the bench scene the busiest 32x128 tile touches ~260 triangles and
-    the busiest 16x32 cell ~125, so 512 and 256 leave 2x headroom.
-    Exactness is regression-tested against rasterize_bruteforce on random
-    Delaunay meshes, and checked at the bench's size by chip_smoke.py. Level-2 binning is cheap because its mask is
-    (cells_per_tile, K1) not (n_cells, T).
+    drops from K1 to K2 edge-function tests. Level-2 binning is cheap
+    because its mask is (cells_per_tile, K1) not (n_cells, T).
     """
     nty = -(-height // tile_h)
     ntx = -(-width // tile_w)
@@ -201,10 +216,9 @@ def rasterize(verts: jax.Array, tris: jax.Array, vals: jax.Array,
                tri_valid[None, :] & (area2[None, :] > 0))
 
     # Per-tile compacted triangle indices via top_k on the masked iota
-    # (a full argsort would sort ~1M keys). Which K triangles survive
-    # overflow differs from the reference's first-K, but overflow is
-    # out-of-contract anyway.
+    # (a full argsort would sort ~1M keys).
     K = min(max_per_tile, T)
+    overflow = jnp.sum(jnp.maximum(jnp.sum(overlap, axis=1) - K, 0))
     key = jnp.where(overlap, jnp.arange(T, dtype=jnp.int32)[None, :], -1)
     kvals, _ = jax.lax.top_k(key, K)  # (n_tiles, K), -1 padded
     order = jnp.maximum(kvals, 0)
@@ -234,6 +248,7 @@ def rasterize(verts: jax.Array, tris: jax.Array, vals: jax.Array,
 
     # Compact again with top_k over the k1 slots; map back to global ids.
     K2 = min(max_per_cell, K)
+    overflow += jnp.sum(jnp.maximum(jnp.sum(overlap2, axis=2) - K2, 0))
     key2 = jnp.where(overlap2, jnp.arange(K, dtype=jnp.int32)[None, None, :],
                      -1)
     k2vals, _ = jax.lax.top_k(key2, K2)  # (n_tiles, n_cell, K2)
@@ -269,22 +284,48 @@ def rasterize(verts: jax.Array, tris: jax.Array, vals: jax.Array,
     img = cells.reshape(nty, ntx, ncy, ncx, cell_h, cell_w)
     img = img.transpose(0, 2, 4, 1, 3, 5)
     img = img.reshape(nty * tile_h, ntx * tile_w)[:height, :width]
-    return jnp.where(jnp.isinf(img), jnp.nan, img)
+    return jnp.where(jnp.isinf(img), jnp.nan, img), overflow
 
 
-# The production single-view rasterizer.
-rasterize_auto = rasterize
+def _bruteforce(verts, tris, vals, tri_valid, height, width, truncate):
+    return rasterize_bruteforce(verts, tris, vals, tri_valid, height, width,
+                                truncate=truncate, chunk=FALLBACK_CHUNK)
 
 
-def rasterize_batch_auto(verts: jax.Array, tris: jax.Array,
-                         vals: jax.Array, tri_valid: jax.Array,
-                         height: int, width: int) -> jax.Array:
+def rasterize(verts: jax.Array, tris: jax.Array, vals: jax.Array,
+              tri_valid: jax.Array, height: int, width: int,
+              truncate: bool = True, **bins) -> jax.Array:
+    """The production rasterizer: rasterize_binned, or rasterize_bruteforce
+    when a bin overflowed. verts (V, 2), tris (T, 3), vals (V,), tri_valid
+    (T,) -> (H, W) with NaN background. bins: rasterize_binned's tile/cell
+    geometry and capacities."""
+    img, overflow = rasterize_binned(verts, tris, vals, tri_valid, height,
+                                     width, truncate=truncate, **bins)
+    return jax.lax.cond(
+        overflow > 0,
+        lambda: _bruteforce(verts, tris, vals, tri_valid, height, width,
+                            truncate),
+        lambda: img)
+
+
+def rasterize_batch(verts: jax.Array, tris: jax.Array, vals: jax.Array,
+                    tri_valid: jax.Array, height: int, width: int, **bins):
     """Rasterize one triangle set from B viewpoints: verts (B, V, 2),
-    vals (B, V), tri_valid (B, T) -> (B, H, W), a vmap of the tile-binned
-    rasterizer over the views (each view bins its own triangles)."""
-    return jax.vmap(
-        lambda v, x, tv: rasterize(v, tris, x, tv, height, width))(
-            verts, vals, tri_valid)
+    vals (B, V), tri_valid (B, T) -> ((B, H, W) maps, overflow summed over
+    the views). The binned pass is a vmap over the views (each view bins
+    its own triangles); if any view overflowed, the whole batch is redrawn
+    by the brute-force rasterizer, one view at a time."""
+    imgs, overflow = jax.vmap(
+        lambda v, x, tv: rasterize_binned(v, tris, x, tv, height, width,
+                                          **bins))(verts, vals, tri_valid)
+    overflow = jnp.sum(overflow)
+    imgs = jax.lax.cond(
+        overflow > 0,
+        lambda: jax.lax.map(
+            lambda a: _bruteforce(a[0], tris, a[1], a[2], height, width,
+                                  True), (verts, vals, tri_valid)),
+        lambda: imgs)
+    return imgs, overflow
 
 
 def interpolate_mesh(verts: jax.Array, tris: jax.Array, vals: jax.Array,
@@ -293,4 +334,4 @@ def interpolate_mesh(verts: jax.Array, tris: jax.Array, vals: jax.Array,
     """interpolateMesh equivalent (reference image_utils.cc:373-396):
     a triangle is drawn iff the triangle and all three vertices are valid."""
     ok = tri_valid & jnp.all(vtx_valid[tris], axis=1)
-    return rasterize_auto(verts, tris, vals, ok, height, width, **kwargs)
+    return rasterize(verts, tris, vals, ok, height, width, **kwargs)

@@ -8,9 +8,9 @@ dense [N_features, N_steps] computation:
 
   * All candidate samples S[m] = img(start + m*step) for m in [-2, NSTEPS+1]
     are gathered at once (one XLA gather per image).
-  * Per-step SSD ee[k] and the cross-correlation CC[k] (between consecutive
-    steps' residual vectors, which the reference accumulates in alternating
-    A/B buffers) are small reductions over the 5-tap axis.
+  * Per-step SSD ee[k] and the one-sided SSD slopes between consecutive
+    steps (which the reference forms from a cross-correlation accumulated
+    in alternating A/B buffers) are small reductions over the 5-tap axis.
   * Best/second-best selection, the non-adjacent ambiguity test, and the
     subpixel zero-crossing refinement are masked arithmetic reproducing the
     reference's exact decision tree.
@@ -33,6 +33,10 @@ from flame_tpu.params import LineStereoParams
 SUCCESS = 0
 FAIL_AMBIGUOUS_MATCH = 1
 FAIL_MAX_COST = 2
+
+# A step this fraction of sample_dist past the segment's end still runs
+# (see the activity mask in match).
+END_SLACK = 1e-3
 
 
 class MatchResult(NamedTuple):
@@ -72,13 +76,21 @@ def match(ref_patch: jax.Array, img_cmp: jax.Array, start: jax.Array,
     inc = diff * (params.sample_dist / safe_len)[:, None]  # (N, 2)
 
     # Step activity mask replicating the loop-entry condition
-    # (line_stereo.h:168-169): continue while cp has not passed end in both
-    # coordinates (sign-aware); step 0 always runs.
+    # (line_stereo.h:168-169): continue while cp has not passed end in
+    # either coordinate; step 0 always runs. Away from the end that is
+    # k * sample_dist <= length. The reference compares positions, which
+    # turns on rounding whenever a step lands on `end` — as it does for
+    # every segment padded to epilength_min, an integer number of steps
+    # long — or a direction component is ~0 (then every step's test is
+    # rounding), so two backends with different rounding disagreed on the
+    # steps searched and with them on the match. The step count is
+    # compared instead, with END_SLACK of a step so that a step on `end`
+    # runs in either direction, which keeps a padded segment's steps
+    # symmetric about its centre.
     ks = jnp.arange(n_steps, dtype=jnp.float32)
     pos = start[:, None, :] + ks[None, :, None] * inc[:, None, :]  # (N, S, 2)
-    past_x = (inc[:, None, 0] < 0) != (pos[:, :, 0] > end[:, None, 0])
-    past_y = (inc[:, None, 1] < 0) != (pos[:, :, 1] > end[:, None, 1])
-    active = jnp.logical_not(past_x | past_y)
+    active = (ks[None, :] * params.sample_dist
+              <= length[:, None] + END_SLACK * params.sample_dist)
     active = active.at[:, 0].set(True)
 
     # Gather all samples: positions m in [-2, n_steps+1] along the line.
@@ -95,11 +107,24 @@ def match(ref_patch: jax.Array, img_cmp: jax.Array, start: jax.Array,
     E = windows - ref_patch[:, None, :]  # (N, S, 5)
     ee = jnp.sum(E * E, axis=-1)  # (N, S)
 
-    # Cross-correlation between consecutive steps' residuals:
-    # CC[k] = sum_j E[k, j] * E[k-1, j], defined for k >= 1.
-    CC = jnp.concatenate(
-        [jnp.zeros((N, 1), jnp.float32),
-         jnp.sum(E[:, 1:, :] * E[:, :-1, :], axis=-1)], axis=1)  # (N, S)
+    # The subpixel step needs the one-sided slopes of the SSD between
+    # consecutive steps. With CC[k] = sum_j E[k, j] * E[k-1, j] (the
+    # cross-correlation the reference accumulates in alternating A/B
+    # buffers) they are ee[k] - CC[k] and CC[k] - ee[k-1]: differences of
+    # two nearly equal sums whose sign a change of rounding flips. The same
+    # slopes are formed here without the cancellation, from
+    # D[k, j] = E[k, j] - E[k-1, j] = S[k+j] - S[k+j-1]:
+    #   slope_in[k]  = sum_j E[k, j] * D[k, j]    (= ee[k] - CC[k])
+    #   slope_out[k] = sum_j E[k-1, j] * D[k, j]  (= CC[k] - ee[k-1])
+    # defined for k >= 1 (step 0 has no predecessor; it is padded with 0
+    # and never read, since its pre-step error is the -1 sentinel).
+    dS = S[:, 1:] - S[:, :-1]
+    D = jnp.stack([dS[:, j:j + n_steps - 1] for j in range(5)], axis=-1)
+    zero = jnp.zeros((N, 1), jnp.float32)
+    slope_in = jnp.concatenate(
+        [zero, jnp.sum(E[:, 1:, :] * D, axis=-1)], axis=1)  # (N, S)
+    slope_out = jnp.concatenate(
+        [zero, jnp.sum(E[:, :-1, :] * D, axis=-1)], axis=1)  # (N, S)
 
     ee_masked = jnp.where(active, ee, f32max)
     best = jnp.argmin(ee_masked, axis=1)  # (N,)
@@ -124,9 +149,7 @@ def match(ref_patch: jax.Array, img_cmp: jax.Array, start: jax.Array,
 
     take = lambda arr, i: jnp.take_along_axis(arr, i[:, None], axis=1)[:, 0]
     err_pre = jnp.where(has_pre, take(ee, jnp.maximum(best - 1, 0)), -1.0)
-    diff_err_pre = take(CC, best)  # CC at k uses steps k-1,k.
     err_post = jnp.where(has_post, take(ee, post_step), -1.0)
-    diff_err_post = take(CC, post_step)
 
     # ---- Threshold test #1 (pre-subpixel): line_stereo.h:260-270.
     fail_max_cost_1 = best_err > 4.0 * params.max_cost
@@ -136,11 +159,12 @@ def match(ref_patch: jax.Array, img_cmp: jax.Array, start: jax.Array,
     fail_ambiguous = non_adjacent & (
         params.second_best_factor * best_err > second_err)
 
-    # ---- Subpixel refinement: line_stereo.h:286-343.
-    grad_pre_pre = -(err_pre - diff_err_pre)
-    grad_pre_this = best_err - diff_err_pre
-    grad_post_this = -(best_err - diff_err_post)
-    grad_post_post = err_post - diff_err_post
+    # ---- Subpixel refinement: line_stereo.h:286-343, whose four gradients
+    # are these slopes (see slope_in / slope_out above).
+    grad_pre_pre = take(slope_out, best)
+    grad_pre_this = take(slope_in, best)
+    grad_post_this = take(slope_out, post_step)
+    grad_post_post = take(slope_in, post_step)
 
     oob = (err_pre < 0) | (err_post < 0)
     inconsistent = (grad_post_this < 0) != (grad_pre_this < 0)

@@ -21,39 +21,29 @@ from flame_tpu.core import pipeline
 from flame_tpu.ops import rasterize
 from flame_tpu.optimize import nltgv2
 
-# Smoother: the primal x within SMOOTHER_ATOL. The iteration is
+# Smoother: the primal x, w1, w2 within SMOOTHER_ATOL. The iteration is
 # non-expansive (prox steps and unit-ball projections), so reduction-order
 # differences of ~1e-7 per iteration do not grow over a frame's
 # iterations. The duals q1..q3 (unit ball) within SMOOTHER_DUAL_ATOL: each
 # dual ascent multiplies a primal difference by step_q * alpha (125 / the
-# edge length in px, up to ~60 on the shortest edges), so a 1e-7 primal
-# difference reaches the duals at ~1e-5.
+# edge length in px, up to ~60 on the shortest edges), so a few-1e-7
+# primal difference reaches the duals at ~1e-5; on an H100 against the
+# CPU the largest dual difference read 1.03e-5 at VGA x 4096.
 SMOOTHER_ATOL = 1e-5
-SMOOTHER_DUAL_ATOL = 1e-4
+SMOOTHER_DUAL_ATOL = 3e-5
 # Rasterizer: a pixel on a shared triangle edge can flip between covered
 # and uncovered when the edge function is contracted into an FMA on one
 # backend and not the other, so the NaN masks need only agree on this
 # share of pixels; values agree within RASTER_ATOL where both are defined.
+# The binned pass must not overflow, or the comparison would be of the
+# brute-force fallback with itself.
 RASTER_MASK_AGREE = 0.999
 RASTER_ATOL = 1e-5
 # Tracking: near-ties in the SSD argmin of the epipolar search (and at the
 # ambiguity and chi-square gates) can flip between backends and change
-# whether a slot's update succeeds or the slot survives, so validity and
-# the per-slot success decision need only agree on this share of slots.
+# whether a slot survives, so validity need only agree on this share of
+# slots; idepth agrees within TRACK_RTOL where both backends keep the slot.
 TRACK_VALID_AGREE = 0.99
-# The subpixel refinement (line_stereo.match, the reference's
-# line_stereo.h:286-343) picks the pre- or post-step zero crossing by the
-# sign of ee[k] - CC[k], a difference of two nearly equal f32 sums, so a
-# different rounding (FMA contraction, summation order) moves a match by
-# about half a step, or one step, on a sizeable share of slots (15-26% on
-# an H100 against the CPU, where a 1e-7 relative pose change flips ~1%):
-# the matched pixel need only agree within TRACK_MATCH_PX on this share of
-# the slots both backends matched.
-TRACK_MATCH_AGREE = 0.65
-TRACK_MATCH_PX = 0.01
-# idepth agrees within TRACK_RTOL where both backends keep the slot and
-# made the same decisions (a flipped decision leaves one backend with
-# another measurement, or with the prior).
 TRACK_RTOL = 1e-4
 
 
@@ -78,16 +68,16 @@ def smoother(rparams, graph, n_iters: int, dev, ref_dev) -> dict:
                     ("q1", em), ("q2", em), ("q3", em)):
         d = np.abs(np.asarray(getattr(a, name)) - np.asarray(getattr(b, name)))
         diff[name] = float(d[m].max()) if m.any() else 0.0
-    ok = diff["x"] <= SMOOTHER_ATOL and all(
-        diff[k] <= SMOOTHER_DUAL_ATOL for k in ("q1", "q2", "q3"))
-    return {"max_abs_diff": diff, "atol_x": SMOOTHER_ATOL,
+    ok = (all(diff[k] <= SMOOTHER_ATOL for k in ("x", "w1", "w2"))
+          and all(diff[k] <= SMOOTHER_DUAL_ATOL for k in ("q1", "q2", "q3")))
+    return {"max_abs_diff": diff, "atol_primal": SMOOTHER_ATOL,
             "atol_duals": SMOOTHER_DUAL_ATOL, "ok": ok}
 
 
 @functools.partial(jax.jit, static_argnames=("height", "width"))
 def _raster_batch(verts_b, tris, vals_b, tri_valid_b, height, width):
-    return rasterize.rasterize_batch_auto(verts_b, tris, vals_b, tri_valid_b,
-                                          height, width)
+    return rasterize.rasterize_batch(verts_b, tris, vals_b, tri_valid_b,
+                                     height, width)
 
 
 @functools.partial(jax.jit, static_argnames=("height", "width"))
@@ -98,11 +88,11 @@ def _raster_ref(verts, tris, vals, tri_valid, height, width):
 
 def raster(verts_b, tris, vals_b, tri_valid_b, height: int, width: int,
            dev, ref_dev) -> dict:
-    """rasterize_batch_auto over B views on `dev` against the brute-force
+    """rasterize_batch over B views on `dev` against the brute-force
     rasterizer, view by view, on `ref_dev`."""
-    out = np.asarray(_raster_batch(*_put((verts_b, tris, vals_b,
-                                          tri_valid_b), dev),
-                                   height, width))
+    out, overflow = _raster_batch(*_put((verts_b, tris, vals_b, tri_valid_b),
+                                        dev), height, width)
+    out, overflow = np.asarray(out), int(overflow)
     mask_agree, max_diff = 1.0, 0.0
     for b in range(out.shape[0]):
         ref = np.asarray(_raster_ref(*_put((verts_b[b], tris, vals_b[b],
@@ -114,10 +104,11 @@ def raster(verts_b, tris, vals_b, tri_valid_b, height: int, width: int,
         if both.any():
             max_diff = max(max_diff,
                            float(np.abs(out[b][both] - ref[both]).max()))
-    return {"views": int(out.shape[0]), "mask_agree_min": mask_agree,
-            "max_abs_diff": max_diff, "mask_agree_bound": RASTER_MASK_AGREE,
-            "atol": RASTER_ATOL,
-            "ok": mask_agree >= RASTER_MASK_AGREE and max_diff <= RASTER_ATOL}
+    return {"views": int(out.shape[0]), "bin_overflow": overflow,
+            "mask_agree_min": mask_agree, "max_abs_diff": max_diff,
+            "mask_agree_bound": RASTER_MASK_AGREE, "atol": RASTER_ATOL,
+            "ok": (overflow == 0 and mask_agree >= RASTER_MASK_AGREE
+                   and max_diff <= RASTER_ATOL)}
 
 
 def tracking(params, K, Kinv, stack, feats, frame_args, curr_pf_slot,
@@ -131,27 +122,19 @@ def tracking(params, K, Kinv, stack, feats, frame_args, curr_pf_slot,
             params, *_put((K, Kinv, stack, feats), d), fnew,
             curr_pf_slot)
         return (np.asarray(curr.valid), np.asarray(obs.success),
-                np.asarray(obs.u_obs), np.asarray(feats2.idepth_mu))
+                np.asarray(feats2.idepth_mu))
 
-    va, sa, ua, ia = run(dev)
-    vb, sb, ub, ib = run(ref_dev)
+    va, sa, ia = run(dev)
+    vb, sb, ib = run(ref_dev)
     agree = float(np.mean(va == vb))
-    s_agree = float(np.mean(sa == sb))
-    matched = sa & sb
-    same_px = np.max(np.abs(ua - ub), axis=-1) <= TRACK_MATCH_PX
-    m_agree = (float(np.mean(same_px[matched])) if matched.any()
-               else 1.0)
-    same = va & vb & (sa == sb) & (~matched | same_px)
-    rel = (np.abs(ia[same] - ib[same])
-           / np.maximum(np.abs(ib[same]), 1e-12))
+    both = va & vb
+    rel = (np.abs(ia[both] - ib[both])
+           / np.maximum(np.abs(ib[both]), 1e-12))
     worst = float(rel.max()) if rel.size else 0.0
     return {"slots": int(va.shape[0]), "valid_dev": int(va.sum()),
             "valid_ref": int(vb.sum()), "valid_agree": agree,
-            "success_dev": int(sa.sum()), "success_agree": s_agree,
-            "match_agree": m_agree, "compared": int(same.sum()),
-            "max_rel_idepth_diff": worst,
-            "valid_agree_bound": TRACK_VALID_AGREE,
-            "match_agree_bound": TRACK_MATCH_AGREE, "rtol": TRACK_RTOL,
-            "ok": (min(agree, s_agree) >= TRACK_VALID_AGREE
-                   and m_agree >= TRACK_MATCH_AGREE
-                   and worst <= TRACK_RTOL)}
+            "success_dev": int(sa.sum()),
+            "success_agree": float(np.mean(sa == sb)),
+            "compared": int(both.sum()), "max_rel_idepth_diff": worst,
+            "valid_agree_bound": TRACK_VALID_AGREE, "rtol": TRACK_RTOL,
+            "ok": agree >= TRACK_VALID_AGREE and worst <= TRACK_RTOL}

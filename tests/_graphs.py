@@ -1,18 +1,19 @@
-"""Shared test graph builder for the smoother tests."""
+"""Shared test graph builders for the smoother tests."""
 
 import numpy as np
 import jax.numpy as jnp
 
 from flame_tpu.mesh import delaunay
 from flame_tpu.optimize import nltgv2
+from flame_tpu.parallel import halo
 
 
-def make_graph(v_cap, e_cap, degree, seed=0, n_pts=200):
-    """Random Delaunay graph over n_pts points scattered into a v_cap-slot
-    GraphState, with random primal/dual state. Returns (g, edges_sorted,
-    n_e, member)."""
+def make_graph(v_cap, e_cap, degree, seed=0, n_pts=200, span=250.0):
+    """Random Delaunay graph over n_pts points in [5, span]^2 scattered
+    into a v_cap-slot GraphState, with random primal/dual state. Returns
+    (g, edges_sorted, n_e, member)."""
     rng = np.random.default_rng(seed)
-    pts = rng.uniform(5, 250, (n_pts, 2)).astype(np.float32)
+    pts = rng.uniform(5, span, (n_pts, 2)).astype(np.float32)
     tri = delaunay.triangulate(pts)
     slots = rng.permutation(v_cap)[:n_pts].astype(np.int32)
 
@@ -61,3 +62,14 @@ def make_graph(v_cap, e_cap, degree, seed=0, n_pts=200):
         edge_mask=jnp.asarray(edge_mask))
     g = g._replace(x_bar=g.x, w1_bar=g.w1, w2_bar=g.w2)
     return g, edges_sorted, n_e, member
+
+
+def rank_inputs(edges_sorted, n_e, member, v_cap, e_cap, degree, reach):
+    """The halo smoother's rank layout of a make_graph graph: (perm, inv,
+    ranks) as numpy arrays."""
+    perm = halo.rcm_order(edges_sorted, n_e, v_cap, member)
+    inv = np.empty(v_cap, np.int32)
+    inv[perm] = np.arange(v_cap, dtype=np.int32)
+    ranks = halo.perm_edge_ranks(edges_sorted, n_e, inv, e_cap, degree,
+                                 reach=reach)
+    return perm, inv, ranks

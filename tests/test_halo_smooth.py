@@ -11,7 +11,7 @@ from flame_tpu.optimize import nltgv2
 from flame_tpu.parallel import halo
 from flame_tpu.params import RegularizerParams
 
-from tests._graphs import make_graph
+from tests._graphs import make_graph, rank_inputs
 
 V_CAP = 1024
 E_CAP = 4096
@@ -20,12 +20,8 @@ HALO = 256
 
 
 def _rank_inputs(edges_sorted, n_e, member, reach, degree=DEGREE):
-    perm = halo.rcm_order(edges_sorted, n_e, V_CAP, member)
-    inv = np.empty(V_CAP, np.int32)
-    inv[perm] = np.arange(V_CAP, dtype=np.int32)
-    ranks = halo.perm_edge_ranks(edges_sorted, n_e, inv, E_CAP, degree,
-                                 reach=reach)
-    return perm, inv, ranks
+    return rank_inputs(edges_sorted, n_e, member, V_CAP, E_CAP, degree,
+                       reach)
 
 
 @pytest.fixture(scope="module")

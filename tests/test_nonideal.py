@@ -263,12 +263,20 @@ def test_repetitive_texture_fires_ambiguity_gate():
     # No confident wrong matches: any estimate surviving inside the
     # band must be accurate (a wrong-lobe lock at period 0.2 m / 3 m
     # depth is a ~6-7% idepth error per lobe; gate on well below one
-    # lobe). Outside the band the map must be dense and accurate.
+    # lobe). Outside the band the map must be dense and accurate where the
+    # scene is rigid: the band is fixed in the image while the plane
+    # slides left under it, so every point left of the band's right edge
+    # had its texture switched between stripes and fractal while it was
+    # tracked, and no match there is well defined. Only the columns right
+    # of the band saw one texture throughout.
     est = fl.get_inverse_depth_map()
     ok = ~np.isnan(est)
     assert ok.mean() > 0.3, ok.mean()
     rel = np.abs(est - 1.0 / PLANE_Z) * PLANE_Z
-    assert np.median(rel[ok]) < 0.05, np.median(rel[ok])
+    cols = np.broadcast_to(np.arange(W)[None, :], est.shape)
+    rigid = cols >= W / 2 + BAND / 2
+    assert ok[rigid].mean() > 0.5, ok[rigid].mean()
+    assert np.median(rel[ok & rigid]) < 0.01, np.median(rel[ok & rigid])
     in_band = np.abs(np.arange(W)[None, :] - W / 2) < BAND / 2
     band_ok = ok & in_band
     if band_ok.sum() > 50:

@@ -355,9 +355,9 @@ def _random_delaunay(rng, n, hi, T=512):
 
 
 def test_rasterize_auto_matches_bruteforce(rng):
-    """The production rasterizer (rasterize_auto, tile-binned) must
-    reproduce the brute-force rasterizer exactly on a random Delaunay
-    mesh."""
+    """The production rasterizer (rasterize, tile-binned) must reproduce
+    the brute-force rasterizer exactly on a random Delaunay mesh, without
+    overflowing a bin."""
     H, W = 120, 160
     pts, tris, tm = _random_delaunay(rng, 180, [156, 116])
     vals = rng.uniform(0.5, 2.0, 180).astype(np.float32)
@@ -365,9 +365,13 @@ def test_rasterize_auto_matches_bruteforce(rng):
     ref = np.asarray(rasterize.rasterize_bruteforce(
         jnp.asarray(pts), jnp.asarray(tris), jnp.asarray(vals),
         jnp.asarray(tm), H, W))
-    out = np.asarray(rasterize.rasterize_auto(
+    out = np.asarray(rasterize.rasterize(
         jnp.asarray(pts), jnp.asarray(tris), jnp.asarray(vals),
         jnp.asarray(tm), H, W))
+    _, overflow = rasterize.rasterize_binned(
+        jnp.asarray(pts), jnp.asarray(tris), jnp.asarray(vals),
+        jnp.asarray(tm), H, W)
+    assert int(overflow) == 0
     assert (np.isnan(ref) == np.isnan(out)).all()
     m = ~np.isnan(ref)
     np.testing.assert_allclose(out[m], ref[m], atol=1e-5)
@@ -375,7 +379,7 @@ def test_rasterize_auto_matches_bruteforce(rng):
 
 @pytest.mark.parametrize("B", [1, 4])
 def test_rasterize_batch_auto_matches_per_view(rng, B):
-    """rasterize_batch_auto must reproduce per-view rasterize_bruteforce
+    """rasterize_batch must reproduce per-view rasterize_bruteforce
     exactly: shifted viewpoints of one triangle set, per-view values and
     validity. 150 vertices in 136x96 px (one per ~87 px²) is about the
     bench's feature density, which overflowed the earlier per-cell
@@ -390,10 +394,12 @@ def test_rasterize_batch_auto_matches_per_view(rng, B):
     tm_b = np.repeat(tm[None], B, axis=0)
     tm_b[B - 1, :10] = False  # view-specific invalidation
 
-    out = np.asarray(rasterize.rasterize_batch_auto(
+    out, overflow = rasterize.rasterize_batch(
         jnp.asarray(verts_b), jnp.asarray(tris), jnp.asarray(vals_b),
-        jnp.asarray(tm_b), H, W))
+        jnp.asarray(tm_b), H, W)
+    out = np.asarray(out)
     assert out.shape == (B, H, W)
+    assert int(overflow) == 0
     for b in range(B):
         ref = np.asarray(rasterize.rasterize_bruteforce(
             jnp.asarray(verts_b[b]), jnp.asarray(tris),
@@ -401,3 +407,67 @@ def test_rasterize_batch_auto_matches_per_view(rng, B):
         assert (np.isnan(ref) == np.isnan(out[b])).all(), b
         m = ~np.isnan(ref)
         np.testing.assert_allclose(out[b][m], ref[m], atol=1e-5)
+
+
+def _overflowing_mesh(rng):
+    """A random Delaunay mesh plus long slivers across the image, so that
+    small bins overflow."""
+    H, W = 96, 128
+    pts, tris, tm = _random_delaunay(rng, 120, [124, 92], T=384)
+    n = int(tm.sum())
+    # Slivers: fans from the left edge to far-right vertices.
+    left = np.argsort(pts[:, 0])[:6]
+    right = np.argsort(pts[:, 0])[-40:]
+    sl = np.stack([np.repeat(left, 20)[:40], right,
+                   np.roll(right, 1)], axis=1).astype(np.int32)
+    tris[n:n + 40] = sl
+    tm[n:n + 40] = True
+    vals = rng.uniform(0.5, 2.0, 120).astype(np.float32)
+    return H, W, pts, tris, tm, vals
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_rasterize_overflow_falls_back_exactly(rng, batched):
+    """A bin that overflows is counted, and the map still equals the
+    brute-force rasterizer's (the fallback), not the truncated binning."""
+    H, W, pts, tris, tm, vals = _overflowing_mesh(rng)
+    ref = np.asarray(rasterize.rasterize_bruteforce(
+        jnp.asarray(pts), jnp.asarray(tris), jnp.asarray(vals),
+        jnp.asarray(tm), H, W))
+    small = dict(max_per_tile=16, max_per_cell=8)
+    binned, n_lost = rasterize.rasterize_binned(
+        jnp.asarray(pts), jnp.asarray(tris), jnp.asarray(vals),
+        jnp.asarray(tm), H, W, **small)
+    assert int(n_lost) > 0
+    # The truncated binning alone is wrong somewhere: the fallback matters.
+    assert not (np.isnan(np.asarray(binned)) == np.isnan(ref)).all()
+    if batched:
+        out, overflow = rasterize.rasterize_batch(
+            jnp.asarray(pts)[None], jnp.asarray(tris),
+            jnp.asarray(vals)[None], jnp.asarray(tm)[None], H, W, **small)
+        out = np.asarray(out)[0]
+        assert int(overflow) == int(n_lost)
+    else:
+        out = np.asarray(rasterize.rasterize(
+            jnp.asarray(pts), jnp.asarray(tris), jnp.asarray(vals),
+            jnp.asarray(tm), H, W, **small))
+    assert (np.isnan(out) == np.isnan(ref)).all()
+    m = ~np.isnan(ref)
+    np.testing.assert_allclose(out[m], ref[m], atol=1e-5)
+
+
+def test_rasterize_overflow_count_is_bbox_excess(rng):
+    """The overflow count is the summed excess of bbox overlaps over each
+    bin's capacity: with one tile and one cell covering a small image,
+    it is (triangles touching it) - capacity at both levels."""
+    H, W = 16, 32
+    pts, tris, tm = _random_delaunay(rng, 30, [28, 12], T=64)
+    n = int(tm.sum())
+    vals = np.ones(30, np.float32)
+    _, overflow = rasterize.rasterize_binned(
+        jnp.asarray(pts), jnp.asarray(tris), jnp.asarray(vals),
+        jnp.asarray(tm), H, W, truncate=False, tile_h=16, tile_w=32,
+        cell_h=16, cell_w=32, max_per_tile=n - 5, max_per_cell=n - 9)
+    # Level 1 drops 5 of n; level 2 then holds n - 5 candidates in a
+    # capacity of n - 9 and drops 4 more.
+    assert int(overflow) == 5 + 4

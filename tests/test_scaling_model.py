@@ -19,10 +19,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from flame_tpu.mesh import delaunay
 from flame_tpu.optimize import nltgv2
 from flame_tpu.parallel import halo, sharding
 from flame_tpu.params import RegularizerParams
+
+from tests import _graphs
 
 DEGREE = 16
 REACH = 2
@@ -30,49 +31,13 @@ N_ITERS = 12
 
 
 def make_graph(V_cap, E_cap, n_pts, seed=0):
-    rng = np.random.default_rng(seed)
-    pts = rng.uniform(5, 500, (n_pts, 2)).astype(np.float32)
-    tri = delaunay.triangulate(pts)
-    slots = rng.permutation(V_cap)[:n_pts].astype(np.int32)
-
-    edges_slots = np.sort(slots[tri.edges], axis=1)
-    order = np.argsort(edges_slots[:, 0].astype(np.int64) * V_cap
-                       + edges_slots[:, 1])
-    edges_sorted = edges_slots[order]
-    n_e = edges_sorted.shape[0]
+    """A graph over [5, 500]^2 and its rank layout: (g, perm, inv,
+    ranks)."""
+    g, edges_sorted, n_e, member = _graphs.make_graph(
+        V_cap, E_cap, DEGREE, seed=seed, n_pts=n_pts, span=500.0)
     assert n_e <= E_cap
-
-    g = nltgv2.empty(V_cap, E_cap, DEGREE)
-    pos = np.zeros((V_cap, 2), np.float32)
-    pos[slots] = pts
-    member = np.zeros(V_cap, bool)
-    member[slots] = True
-    edges_full = np.zeros((E_cap, 2), np.int64)
-    edges_full[:n_e] = edges_sorted
-    edge_mask = np.arange(E_cap) < n_e
-    d = pos[edges_full[:, 0]] - pos[edges_full[:, 1]]
-    length = np.sqrt((d * d).sum(1))
-    alpha = np.where(edge_mask & (length > 1e-6),
-                     1.0 / np.maximum(length, 1e-6), 0.0)
-    g = g._replace(
-        pos=jnp.asarray(pos),
-        x=jnp.asarray(np.where(member, rng.uniform(0.5, 2.0, V_cap), 0.0),
-                      jnp.float32),
-        data_term=jnp.asarray(
-            np.where(member, rng.uniform(0.5, 2.0, V_cap), 0.0),
-            jnp.float32),
-        data_weight=jnp.asarray(member.astype(np.float32)),
-        vtx_mask=jnp.asarray(member),
-        edges=jnp.asarray(edges_full.astype(np.int32)),
-        alpha=jnp.asarray(alpha.astype(np.float32)),
-        beta=jnp.asarray(edge_mask.astype(np.float32)),
-        edge_mask=jnp.asarray(edge_mask))
-    g = g._replace(x_bar=g.x)
-
-    perm = halo.rcm_order(edges_sorted, n_e, V_cap, member)
-    inv = np.empty(V_cap, np.int32)
-    inv[perm] = np.arange(V_cap, dtype=np.int32)
-    ranks = halo.perm_edge_ranks(edges_sorted, n_e, inv, E_cap, DEGREE, REACH)
+    perm, inv, ranks = _graphs.rank_inputs(edges_sorted, n_e, member, V_cap,
+                                           E_cap, DEGREE, REACH)
     return g, jnp.asarray(perm), jnp.asarray(inv), jnp.asarray(ranks)
 
 

@@ -74,6 +74,33 @@ def test_line_stereo_finds_planted_match():
     assert float(res.residual[0]) < 100.0
 
 
+def test_line_stereo_steps_do_not_depend_on_endpoint_rounding():
+    """A segment padded to epilength_min is an integer number of steps
+    long, and a near-horizontal epiline has a ~1e-6 px y step. Neither
+    may let rounding of the endpoints decide which steps are searched:
+    the match sits on the last step and must be found, with the same
+    subpixel position, for every last-ulp perturbation of the segment."""
+    idepth = 0.2
+    _, img_cmp, disp = make_pair(idepth)
+    x0, y0 = 80.0, 48.0
+    true_x = x0 - disp
+    ref_patch = jnp.asarray(_patch_at(texture, x0, y0))[None, :]
+    params = LineStereoParams()
+    n_steps = line_stereo.n_steps_for(3.0)
+    found = []
+    for dy in (-3e-6, -1e-6, 0.0, 1e-6, 3e-6):
+        # Three steps long, ending on the true match.
+        start = np.array([[true_x - 3.0, y0 - dy]], np.float32)
+        end = np.array([[true_x, y0 + dy]], np.float32)
+        res = line_stereo.match(ref_patch, img_cmp, jnp.asarray(start),
+                                jnp.asarray(end), jnp.ones(1), params,
+                                n_steps)
+        assert int(res.best_idx[0]) == 3, dy
+        found.append(np.asarray(res.u_cmp[0]))
+    for u in found:
+        np.testing.assert_allclose(u, found[2], atol=1e-3)
+
+
 def test_line_stereo_subpixel_beats_integer():
     """With a non-integer true disparity, subpixel refinement must get closer
     than the best integer step."""
